@@ -15,22 +15,40 @@ Phases, each of which raises on failure (exit code 1):
      (tests/oracle_numpy.py: density rtol 1e-4, positions atol 1e-5), and
      10 chained kernel steps against 10 plain steps on the CPU,
      multiset-compared (density rtol 1e-4, positions atol 1e-4);
-  5. the main path through the user's entry points: Simulator at 262,144
-     particles, 3 warm-up steps and 100 timed `simulate_and_time` steps;
-     prints the Times table and timesteps/s, checks that each kernel was
-     launched, that no particle left the grid and that the state is
-     finite.
-It then prints one JSON line of per-kernel results and, last, one JSON
-line {"ok": true, "device": {...}}.
+  5. the timed path through the user's entry points: Simulator at 262,144
+     particles, 3 warm-up steps and 100 timed `simulate_and_time` steps
+     (the copy to the host double-buffered on a side stream); prints the
+     Times table and timesteps/s, checks that each kernel was launched,
+     that no particle left the grid and that the state is finite;
+  6. the rate probes: each probe kernel against its plain version for
+     every dtype, stream count, pt and variant at 64 rounds (f32 FMA, f32
+     density mix and loop probe rtol 1e-5; bf16 bit-equal), the
+     dynamic-trip variants also with desc[rounds] != rounds; at the entry
+     points' round counts the f32 FMA bit-equal on tie-free inputs, and the
+     loop probe (every variant at R, V0 and V1 at 4R) within rounds·eps
+     and a mean difference under 1 % of one round's term; then the two
+     probe entry points (`tpusph_torch.scripts.vpu_microbench` and
+     `loop_probe`) at their own round counts, every rate finite and
+     positive;
+  7. headless free mode through the command line, `python -m tpusph_torch
+     -n 262144 -m free --frames 10 --click 2:400,300 --save ...`, run in
+     this process: 10 PNGs, a saved state that is finite and inside the
+     box; prints the wall time per frame, set-up and save included.
+Each path's kernel launch counts are set to 0 just before it and read just
+after. It then prints one JSON line of per-kernel results and, last, one
+JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,6 +59,9 @@ N_MAIN = 262_144
 N_PARITY = 4096
 TIMED_STEPS = 100
 WARMUP_STEPS = 3
+CHECK_ROUNDS = 64  # rounds at which the probes are held against their plain versions
+FREE_FRAMES = 10
+FREE_CLICK = "2:400,300"  # frame:pixel, the box centre
 
 
 def require(ok, msg: str) -> None:
@@ -87,13 +108,17 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from tpusph_torch import cli
     from tpusph_torch.bench.times import Times, format_times
     from tpusph_torch.core.config import default_config, tuned_config
     from tpusph_torch.core.init import init_state
+    from tpusph_torch.core.io import load_state
     from tpusph_torch.engine.simulator import Simulator
     from tpusph_torch.engine.step import build_phase, make_step
-    from tpusph_torch.kernels import fused, qrank
+    from tpusph_torch.kernels import fused, probes, qrank
     from tpusph_torch.physics.kernels import pressure_from_density
+    from tpusph_torch.scripts import loop_probe as loop_script
+    from tpusph_torch.scripts import slope, timed, vpu_microbench
     from tpusph_torch.utils import cuda_build
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -184,6 +209,10 @@ def main() -> int:
                 print(f"time {name}: kernel {results[name]['ms']:.4f} ms, plain "
                       f"{results[name]['plain_ms']:.4f} ms per call (N={N_MAIN}, "
                       f"step 20; {card})")
+            pairs = int(count.sum())
+            print(f"candidate pairs at step 20: {pairs}; density kernel "
+                  f"{pairs / results['density']['ms'] / 1e6:.2f} Gpair/s, force kernel "
+                  f"{pairs / results['force']['ms'] / 1e6:.2f} Gpair/s ({card})")
 
     # ------------------------------------------------- 4. parity at 4096
     cfg4 = default_config(N_PARITY)
@@ -209,7 +238,7 @@ def main() -> int:
     np.testing.assert_allclose(ra, rb, rtol=1e-4, atol=0)
     print(f"parity N={N_PARITY}: 10 kernel steps match 10 plain steps on the CPU")
 
-    # ------------------------------------------------------ 5. main path
+    # ----------------------------------------------------- 5. timed path
     kernels = [qrank.rank_queries, fused.density, fused.force]
     for fn in kernels:
         fn.launches = 0
@@ -243,10 +272,207 @@ def main() -> int:
     lo, hi = cfg.h, cfg.box_dim - cfg.h
     require(pos.min() >= lo - 1e-6 and pos.max() <= hi + 1e-6, "particle outside the box")
 
+    # --------------------------------------------------------- 6. probes
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def uniform(shape, lo, hi):
+        return torch.empty(shape, device=dev).uniform_(lo, hi, generator=gen)
+
+    def keys(count):
+        return torch.randint(0, 3, (count,), device=dev, generator=gen).float()
+
+    probe_err = {"fma_probe": 0.0, "density_mix": 0.0, "loop_probe": 0.0}
+
+    def hold(name, got, want, rtol):
+        torch.cuda.synchronize()
+        if rtol:
+            torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+        else:
+            require(torch.equal(got, want), f"{name} differs from its plain version")
+        err = float((got.float() - want.float()).abs().max())
+        probe_err[name] = max(probe_err[name], err)
+
+    def hold_sum(got, want, rounds):
+        """A loop probe's sum over `rounds` f32 terms, rounded in two orders
+        (nvcc's FMA against separate ops): each element within the bound
+        rounds·eps·|sum| of two such sums (a static-load variant adds the
+        same term every round and may reach it: one rounding that tips the
+        other way recurs each round), and the mean difference under 1 % of
+        one round's mean term, which a kernel one round short misses by 100×."""
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, want, rtol=rounds * torch.finfo(torch.float32).eps, atol=0)
+        shift = float((got - want).mean()) / (float(want.mean()) / rounds)
+        require(abs(shift) < 0.01, f"loop_probe at {rounds} rounds: mean difference "
+                f"{shift:.3g} of a round's term")
+        err = float((got - want).abs().max())
+        probe_err["loop_probe"] = max(probe_err["loop_probe"], err)
+        return err, shift
+
+    def loop_inputs(rounds, trip):
+        desc = torch.randint(0, (cap - bl) // 128, (rounds + 8,), device=dev, generator=gen)
+        desc[rounds] = trip
+        return desc.to(torch.int16)
+
+    r = CHECK_ROUNDS
+    for dtype in probes.DTYPES:
+        rtol = 1e-5 if dtype == torch.float32 else 0
+        for streams in probes.FMA_STREAMS:
+            x = uniform((vpu_microbench.SUB, 128), 0.5, 2.0).to(dtype)
+            hold("fma_probe", probes.fma_probe(x, streams, r),
+                 probes.fma_probe_plain(x, streams, r), rtol)
+        for pt in (8, 64, 128, 256):
+            t, c = uniform((max(pt, 8), 4), 1.0, 1.05), uniform((8, 128), 1.0, 1.05)
+            t[:, 3], c[3] = keys(t.shape[0]), keys(128)
+            t, c = t.to(dtype), c.to(dtype)
+            hold("density_mix", probes.density_mix(t, c, pt, r),
+                 probes.density_mix_plain(t, c, pt, r), rtol)
+    pt, bl, cap = 64, 256, loop_script.CAP
+    t, cand = uniform((pt, 4), 1.0, 1.05), uniform((8, cap), 1.0, 1.05)
+    desc = loop_inputs(r, r)
+    for variant in probes.VARIANTS:
+        hold("loop_probe", probes.loop_probe(variant, desc, t, cand, pt, bl),
+             probes.loop_probe_plain(variant, desc, t, cand, pt, bl), 1e-5)
+    # The dynamic-trip variants run desc[rounds] blocks, not rounds.
+    desc = loop_inputs(r, r - 23)
+    for variant in ("V2", "V3", "V4", "V5"):
+        hold("loop_probe", probes.loop_probe(variant, desc, t, cand, pt, bl),
+             probes.loop_probe_plain(variant, desc, t, cand, pt, bl), 1e-5)
+    print(f"probes at {r} rounds (dynamic trips also at desc[{r}] = {r - 23}) equal "
+          f"their plain versions; max|err| {probe_err}")
+
+    # At the entry points' round counts. f32 FMA on inputs where a fused and
+    # a split multiply-add round alike: bit-equal, so every round must run
+    # (the bf16 chain cannot show it: bf16(c1) = 1 and c2 is under half an
+    # ulp). The loop probe at R for every variant and at 4R for V0 and V1,
+    # whose trip counts are compiled in.
+    fr = vpu_microbench.R
+    x = probes.fma_tie_free_input((vpu_microbench.SUB, 128), 0, 4 * fr).to(dev)
+    for streams in probes.FMA_STREAMS:
+        got = probes.fma_probe(x, streams, fr)
+        hold("fma_probe", got, probes.fma_probe_plain(x, streams, fr), 0)
+        require(not torch.equal(got, probes.fma_probe(x, streams, fr - 1)),
+                "the FMA probe's output does not show its round count")
+    print(f"f32 FMA probe at {fr} rounds equals its plain version bit for bit")
+    for rounds in (loop_script.R, 4 * loop_script.R):
+        desc = loop_inputs(rounds, rounds)
+        for variant in probes.VARIANTS if rounds == loop_script.R else ("V0", "V1"):
+            err, shift = hold_sum(probes.loop_probe(variant, desc, t, cand, pt, bl),
+                                  probes.loop_probe_plain(variant, desc, t, cand, pt, bl),
+                                  rounds)
+            print(f"loop_probe {variant} at {rounds} rounds: max|err| {err:.3e}, mean "
+                  f"difference {shift:.3e} of a round's term")
+
+    probe_fns = {"fma_probe": probes.fma_probe, "density_mix": probes.density_mix,
+                 "loop_probe": probes.loop_probe}
+    for fn in probe_fns.values():
+        fn.launches = 0
+    rates = vpu_microbench.main()
+    rates.update({("loop_probe", v): g for v, g in loop_script.main([]).items()})
+    for name, fn in probe_fns.items():
+        launches[name] = fn.launches
+    print(f"launches in the probe path: { {n: launches[n] for n in probe_fns} }")
+    for key, rate in rates.items():
+        require(math.isfinite(rate) and rate > 0, f"probe rate {key} = {rate}")
+    for name in probe_fns:
+        require(launches[name] > 0, f"{name} kernel was not launched by the probe path")
+
+    def plain_ms(call, rounds):
+        """The plain version's slope at rounds/100 and 4·rounds/100, scaled
+        to `rounds`, in ms."""
+        lo = max(1, rounds // 100)
+        dt = slope(timed(lambda: call(lo), 2), timed(lambda: call(4 * lo), 2), lo, 4 * lo)
+        return dt * rounds * 1e3
+
+    ones = torch.ones((vpu_microbench.SUB, 128), device=dev)
+    fma_r = vpu_microbench.R
+    mix_t, mix_c = torch.ones((128, 4), device=dev), torch.ones((8, 128), device=dev)
+    mix_r = vpu_microbench.R
+    rng = np.random.default_rng(0)
+    lp_t = torch.from_numpy(rng.uniform(1, 9, (64, 4)).astype(np.float32)).to(dev)
+    lp_c = torch.from_numpy(rng.uniform(1, 9, (8, cap)).astype(np.float32)).to(dev)
+    lp_r = loop_script.R
+    lp_desc = np.zeros((lp_r + 8,), np.int16)
+    lp_desc[:lp_r] = rng.integers(0, (cap - 256) // 128, lp_r)
+    lp_desc[lp_r] = lp_r
+    lp_desc = torch.from_numpy(lp_desc).to(dev)
+
+    @functools.cache
+    def lp_desc_of(rounds):
+        d = torch.zeros(rounds + 8, dtype=torch.int16, device=dev)
+        d[:rounds] = lp_desc[:rounds]
+        d[rounds] = rounds
+        return d
+
+    probe_calls = {
+        "fma_probe": (
+            f"float32, streams 8, ({vpu_microbench.SUB}, 128), {fma_r} rounds",
+            lambda n: probes.fma_probe(ones, 8, n), lambda n: probes.fma_probe_plain(ones, 8, n),
+            fma_r),
+        "density_mix": (
+            f"float32, pt 128, {mix_r} rounds",
+            lambda n: probes.density_mix(mix_t, mix_c, 128, n),
+            lambda n: probes.density_mix_plain(mix_t, mix_c, 128, n), mix_r),
+        "loop_probe": (
+            f"V3, pt 64, bl 256, {lp_r} rounds",
+            lambda n: probes.loop_probe("V3", lp_desc_of(n), lp_t, lp_c, 64, 256),
+            lambda n: probes.loop_probe_plain("V3", lp_desc_of(n), lp_t, lp_c, 64, 256),
+            lp_r),
+    }
+    sources = {
+        "fma_probe": "scripts/vpu_microbench.py:45",
+        "density_mix": "scripts/vpu_microbench.py:81",
+        "loop_probe": "scripts/loop_probe.py:54",
+    }
+    for name, (at, kern, plain, rounds) in probe_calls.items():
+        results[name] = dict(
+            route="cuda", source="tpusph_torch/csrc/probes.cu", replaces=sources[name],
+            max_abs_err=probe_err[name], at=at,
+            ms=timed(lambda: kern(rounds), 6) * 1e3, plain_ms=plain_ms(plain, rounds))
+        print(f"time {name} ({at}): kernel {results[name]['ms']:.4f} ms per call, plain "
+              f"{results[name]['plain_ms']:.4f} ms (its slope from {max(1, rounds // 100)} "
+              f"to {4 * max(1, rounds // 100)} rounds, scaled to {rounds}; {card})")
+
+    # ------------------------------------------------------ 7. free mode
+    with tempfile.TemporaryDirectory() as tmp:
+        frames_dir, ckpt = os.path.join(tmp, "frames"), os.path.join(tmp, "free.npz")
+        argv = ["-n", str(N_MAIN), "-m", "free", "--frames", str(FREE_FRAMES),
+                "--click", FREE_CLICK, "--out", frames_dir, "--save", ckpt]
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        free_s = time.perf_counter() - t0
+        free_launches = {name: fn.launches
+                         for name, fn in zip(("rank", "density", "force"), kernels)}
+        require(rc == 0, f"the free-mode command line exited {rc}")
+        pngs = sorted(f for f in os.listdir(frames_dir) if f.endswith(".png"))
+        require(len(pngs) == FREE_FRAMES, f"free mode wrote {len(pngs)} frames")
+        for name in pngs:
+            with open(os.path.join(frames_dir, name), "rb") as f:
+                require(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{name} is not a PNG")
+        state, _ = load_state(ckpt, "cpu")
+    print(f"launches in free mode: {free_launches}")
+    for name, n in free_launches.items():
+        require(n > 0, f"{name} kernel was not launched by free mode")
+    v = state.valid.numpy()
+    require(v.sum() == N_MAIN, "the saved state lost particles")
+    for f in ("position", "velocity", "density"):
+        require(torch.isfinite(getattr(state, f)[v]).all(), f"non-finite {f} in free mode")
+    pos = state.position.numpy()[v]
+    require(pos.min() >= lo - 1e-6 and pos.max() <= hi + 1e-6,
+            "particle outside the box in free mode")
+    print(f"free mode: python -m tpusph_torch {' '.join(argv[:8])}: {FREE_FRAMES} frames, "
+          f"{free_s:.3f} s, {free_s / FREE_FRAMES * 1e3:.2f} ms per frame with set-up "
+          f"and save ({card})")
+
     table = [
         {"name": name, "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         **({"at": r["at"]} if "at" in r else {})}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": table}))

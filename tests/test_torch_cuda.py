@@ -8,16 +8,24 @@ without them. On a GPU machine, from the repository root:
 not need.) Bars: ranks exact; density rtol 1e-5; force rtol 1e-4 with
 atol 1e-4, and on the dense blob an atol at the float32 floor of its sums
 (see the test). The kernels sum in another order than the plain versions,
-and nvcc contracts a*b+c into FMA."""
+and nvcc contracts a*b+c into FMA. The rate probes at 64 rounds: f32 FMA,
+f32 density mix and the loop probe rtol 1e-5 (FMA against separately
+rounded ops; rsqrtf); bf16 FMA and bf16 density mix bit-equal. At the
+entry points' round counts: the f32 FMA bit-equal on inputs where a fused
+and a split multiply-add round alike; the loop probe within rounds·eps
+and a mean difference under 1 % of one round's term. The copy of the
+positions to the host equals a synchronous copy exactly."""
 
 import numpy as np
 import pytest
 import torch
 
+from tpusph_torch.bench.times import Times
 from tpusph_torch.core.config import default_config
 from tpusph_torch.core.init import init_state
+from tpusph_torch.engine.simulator import Simulator
 from tpusph_torch.engine.step import build_phase, make_step
-from tpusph_torch.kernels import fused, qrank
+from tpusph_torch.kernels import fused, probes, qrank
 from tpusph_torch.physics.kernels import pressure_from_density
 
 pytestmark = pytest.mark.gpu
@@ -107,3 +115,135 @@ def test_wrappers_reject_mixed_devices(dev):
         fused.density(xyz[0].cpu(), xyz[1], xyz[2], cl.key_sorted, cl.starts, cfg)
     with pytest.raises(ValueError):
         qrank.rank_queries(cl.key_sorted, cl.starts.cpu(), cfg.num_cells)
+
+
+def test_timed_fetch_equals_a_synchronous_copy(dev):
+    """20 double-buffered timed steps at N = 4096: each step's fetched
+    positions equal a synchronous copy of that state, and no array handed
+    out is overwritten by a later step."""
+    n = 4096
+    sim = Simulator(default_config(n, chunk_size=1024), device=dev)
+    sim.setup()
+    times = Times()
+    got, want = [], []
+    for _ in range(20):
+        sim.simulate_and_time(times)
+        want.append(sim.state.position[:n].cpu().numpy())
+        got.append(sim.get_position())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_fetches_in_flight_across_steps(dev):
+    """Fetches started right after their step is queued, and waited on only
+    after 20 more steps: the side stream waited for the step, and the
+    source positions were not reused while it read them."""
+    n = 4096
+    sim = Simulator(default_config(n, chunk_size=1024), device=dev)
+    sim.setup()
+    pending = []
+    for _ in range(20):
+        sim.simulate()
+        pending.append((sim.get_position_async(), sim.state.position[:n].clone()))
+    for fetch, ref in pending:
+        np.testing.assert_array_equal(fetch.wait(), ref.cpu().numpy())
+
+
+def test_fetch_buffer_is_pinned(dev):
+    sim = Simulator(default_config(1024, chunk_size=1024), device=dev)
+    sim.setup()
+    fetch = sim.get_position_async()
+    assert fetch.buffer.is_pinned()
+    np.testing.assert_array_equal(fetch.wait(), sim.state.position[:1024].cpu().numpy())
+
+
+def _same(kernel, plain, rtol):
+    torch.cuda.synchronize()
+    if rtol:
+        torch.testing.assert_close(kernel, plain, rtol=rtol, atol=0)
+    else:
+        assert torch.equal(kernel, plain)
+
+
+@pytest.mark.parametrize("streams", probes.FMA_STREAMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fma_probe_equals_plain(dev, dtype, streams):
+    g = torch.Generator(device=dev).manual_seed(streams)
+    x = torch.empty((256, 128), device=dev).uniform_(0.5, 2.0, generator=g).to(dtype)
+    before = probes.fma_probe.launches
+    got = probes.fma_probe(x, streams, 64)
+    assert probes.fma_probe.launches == before + 1
+    _same(got, probes.fma_probe_plain(x, streams, 64), 1e-5 if dtype == torch.float32 else 0)
+
+
+@pytest.mark.parametrize("pt", [8, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_density_mix_equals_plain(dev, dtype, pt):
+    g = torch.Generator(device=dev).manual_seed(pt)
+    t = torch.empty((max(pt, 8), 4), device=dev).uniform_(1.0, 1.05, generator=g)
+    c = torch.empty((8, 128), device=dev).uniform_(1.0, 1.05, generator=g)
+    t[:, 3] = torch.randint(0, 3, (t.shape[0],), device=dev, generator=g).float()
+    c[3] = torch.randint(0, 3, (128,), device=dev, generator=g).float()
+    t, c = t.to(dtype), c.to(dtype)
+    got = probes.density_mix(t, c, pt, 64)
+    _same(got, probes.density_mix_plain(t, c, pt, 64), 1e-5 if dtype == torch.float32 else 0)
+
+
+@pytest.mark.parametrize("streams", probes.FMA_STREAMS)
+def test_fma_probe_runs_every_round(dev, streams):
+    """At the entry point's 20,000 rounds on tie-free inputs the f32 kernel
+    equals the plain version bit for bit; one round fewer changes the bits."""
+    rounds = 20_000
+    x = probes.fma_tie_free_input((256, 128), streams, rounds).to(dev)
+    got = probes.fma_probe(x, streams, rounds)
+    _same(got, probes.fma_probe_plain(x, streams, rounds), 0)
+    assert not torch.equal(got, probes.fma_probe(x, streams, rounds - 1))
+
+
+def _loop_inputs(dev, rounds, trip, seed):
+    pt, bl, cap = 64, 256, 16384
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.empty((pt, 4), device=dev).uniform_(1.0, 1.05, generator=g)
+    cand = torch.empty((8, cap), device=dev).uniform_(1.0, 1.05, generator=g)
+    desc = torch.randint(0, (cap - bl) // 128, (rounds + 8,), device=dev, generator=g)
+    desc[rounds] = trip
+    return desc.to(torch.int16), t, cand, pt, bl
+
+
+@pytest.mark.parametrize("rounds", [64, 4096, 16384])
+@pytest.mark.parametrize("variant", list(probes.VARIANTS))
+def test_loop_probe_equals_plain(dev, variant, rounds):
+    args = _loop_inputs(dev, rounds, rounds, rounds)
+    got = probes.loop_probe(variant, *args)
+    want = probes.loop_probe_plain(variant, *args)
+    torch.cuda.synchronize()
+    if rounds <= 64:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        return
+    # Two sums of `rounds` f32 terms rounded in two orders (FMA against
+    # separate ops) differ by at most rounds·eps·|sum|, and a static-load
+    # variant, adding the same term every round, may come near that: one
+    # rounding that tips the other way recurs in every round. The mean
+    # difference stays far below one round's term, which a kernel one
+    # round short misses by 100×.
+    torch.testing.assert_close(got, want, rtol=rounds * torch.finfo(torch.float32).eps, atol=0)
+    shift = float((got - want).mean()) / (float(want.mean()) / rounds)
+    assert abs(shift) < 0.01
+
+
+@pytest.mark.parametrize("variant", ["V2", "V3", "V4", "V5"])
+def test_dynamic_trip_reads_desc(dev, variant):
+    """The dynamic-trip variants run desc[rounds] blocks, here 41 of 64."""
+    args = _loop_inputs(dev, 64, 41, 7)
+    _same(probes.loop_probe(variant, *args), probes.loop_probe_plain(variant, *args), 1e-5)
+    full = probes.loop_probe_plain(variant, *_loop_inputs(dev, 64, 64, 7))
+    assert not torch.allclose(full, probes.loop_probe(variant, *args), rtol=1e-2)
+
+
+def test_static_trip_refuses_other_round_counts(dev):
+    desc = torch.zeros(100 + 8, dtype=torch.int16, device=dev)
+    t = torch.ones((8, 4), device=dev)
+    cand = torch.ones((8, 512), device=dev)
+    with pytest.raises(ValueError):
+        probes.loop_probe("V0", desc, t, cand, 8, 256)
+    probes.loop_probe("V2", desc, t, cand, 8, 256)  # the trip count comes from desc

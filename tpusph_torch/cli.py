@@ -4,9 +4,12 @@
 
 Counterpart of `tpusph/cli.py`: the same defaults (N=1000, grid init,
 time mode), the same usage text and the same 100-step timed run printing
-the Times table. Extra flags: --steps, --warmup, --seed and --device
-(default cuda). Free mode, --mesh, --save and --load are not ported yet
-and exit with an error.
+the Times table. Free mode is the headless frame dump of `--frames N`
+(`--out DIR`, scripted clicks `--click frame:px,py`, repeatable).
+`--save PATH` checkpoints the final state and `--load PATH` resumes one,
+in the `.npz` format both packages read. Extra flags: --steps, --warmup,
+--seed and --device (default cuda). --mesh is not ported yet and exits
+with an error.
 """
 
 from __future__ import annotations
@@ -43,9 +46,33 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--seed", type=int, default=0, help="generator seed for -i random")
     p.add_argument("--device", type=str, default="cuda", help="torch device")
-    for flag in ("--mesh", "--save", "--load"):
-        p.add_argument(flag, type=str, default=None, help=NOT_PORTED)
+    p.add_argument("--frames", type=int, default=0, help="free mode: frame-dump count")
+    p.add_argument("--out", type=str, default="frames", help="free mode: output dir")
+    p.add_argument(
+        "--click", type=str, default=None, action="append",
+        help="free mode: 'frame:px,py' scripted click, repeatable",
+    )
+    p.add_argument(
+        "--save", type=str, default=None, metavar="PATH",
+        help="checkpoint the final state to PATH (.npz, self-describing)",
+    )
+    p.add_argument(
+        "--load", type=str, default=None, metavar="PATH",
+        help="resume from a checkpoint written by --save of either package "
+        "(restores N and the physics config; -n/-i are ignored with a note)",
+    )
+    p.add_argument("--mesh", type=str, default=None, help=NOT_PORTED)
     return p
+
+
+def parse_clicks(specs: list[str] | None) -> dict[int, tuple[int, int]]:
+    """['frame:px,py', ...] → {frame: (px, py)}."""
+    clicks = {}
+    for spec in specs or []:
+        frame, xy = spec.split(":")
+        x, y = xy.split(",")
+        clicks[int(frame)] = (int(x), int(y))
+    return clicks
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -59,39 +86,66 @@ def main(argv: list[str] | None = None) -> int:
     if args.show_help:
         print(usage(), end="")
         return 1
-    for what, given in (
-        ("-m free", args.exec_mode == "free"),
-        ("--mesh", args.mesh is not None),
-        ("--save", args.save is not None),
-        ("--load", args.load is not None),
-    ):
-        if given:
-            print(f"sph: {what} is {NOT_PORTED}", file=sys.stderr)
-            return 2
+    if args.mesh is not None:
+        print(f"sph: --mesh is {NOT_PORTED}", file=sys.stderr)
+        return 2
+    try:
+        clicks = parse_clicks(args.click)
+    except ValueError:
+        print(usage(), end="")
+        return 1
 
-    from tpusph_torch.bench.times import Times, display_times
     from tpusph_torch.core.config import tuned_config
     from tpusph_torch.core.init import lattice_capacity
+    from tpusph_torch.core.io import load_state, save_state
     from tpusph_torch.engine.simulator import Simulator
 
-    cfg = tuned_config(args.num_particles)
-    random_init = args.init_mode == "random"
-    cap = lattice_capacity(cfg)
-    if not random_init and args.num_particles > cap:
-        print(
-            f"sph: N={args.num_particles} exceeds the {cap} grid-lattice "
-            "ceiling — using random init",
-            file=sys.stderr,
-        )
-        random_init = True
+    loaded_state = None
+    if args.load is not None:
+        # the checkpoint's config (N and the physics) is the one to resume
+        loaded_state, cfg = load_state(args.load, args.device)
+        if args.num_particles != 1000 and args.num_particles != cfg.num_particles:
+            print(
+                f"sph: --load restores N={cfg.num_particles}; -n "
+                f"{args.num_particles} ignored",
+                file=sys.stderr,
+            )
+        random_init = False
+    else:
+        cfg = tuned_config(args.num_particles)
+        random_init = args.init_mode == "random"
+        cap = lattice_capacity(cfg)
+        if not random_init and args.num_particles > cap:
+            print(
+                f"sph: N={args.num_particles} exceeds the {cap} grid-lattice "
+                "ceiling — using random init",
+                file=sys.stderr,
+            )
+            random_init = True
 
     sim = Simulator(cfg, random_init=random_init, seed=args.seed, device=args.device)
-    sim.setup()
-    warm = Times()
-    for _ in range(args.warmup):
-        sim.simulate_and_time(warm)
-    times = Times()
-    for _ in range(args.steps):
-        sim.simulate_and_time(times)
-    display_times(times)
+    sim.setup(loaded_state)
+
+    if args.exec_mode == "time":
+        from tpusph_torch.bench.times import Times, display_times
+
+        warm = Times()
+        for _ in range(args.warmup):
+            sim.simulate_and_time(warm)
+        times = Times()
+        for _ in range(args.steps):
+            sim.simulate_and_time(times)
+        display_times(times)
+    else:
+        from tpusph_torch.viz.render import run_free_mode
+
+        try:
+            run_free_mode(sim, frames=args.frames, out_dir=args.out, clicks=clicks)
+        except NotImplementedError as e:
+            print(f"sph: {e}", file=sys.stderr)
+            return 2
+
+    if args.save is not None:
+        save_state(args.save, sim.state, sim.cfg)
+        print(f"saved checkpoint: {args.save}", file=sys.stderr)
     return 0

@@ -18,6 +18,14 @@ EPS_F = 1e-4  # reference: simulator.cu:14
 
 MAX_PARTICLES_DEFAULT = 1000  # reference default -n (main.cpp:21)
 
+# Pixel bounds of the box in the 800×600 window, for click → cell
+# (display.cpp:24-27), and the click impulse strength (simulator.cu:13).
+BOX_MIN_X = 200
+BOX_MAX_X = 600
+BOX_MIN_Y = 150
+BOX_MAX_Y = 450
+PUSH_STRENGTH = 5.0
+
 
 def f32(x: float) -> float:
     """Round a python float through float32. Kernel constants are passed in

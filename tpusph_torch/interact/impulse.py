@@ -1,0 +1,119 @@
+"""Click-ripple impulse (kernelMoveParticles, simulator.cu:329-367).
+Counterpart of `tpusph/interact/impulse.py`, with the same semantics:
+
+  * pixel → world: x = (px − BOX_MIN_X)/(BOX_MAX_X − BOX_MIN_X)·box_dim, the
+    same for y, in float32 on the host (cu:331-336);
+  * click cell by truncation, then the y-flip cell.y = C − cell.y (cu:340);
+  * a particle in cell (px, py, pz) is kicked when |px − cx| ≤ 2 and
+    |py − cy| ≤ 2: v.x += PUSH/dx and v.y += PUSH/dy for nonzero dx, dy,
+    and the centre column gets v.z −= PUSH (cu:342-366);
+  * each kick is scaled by the number of the reference's z-slab threads
+    that land on the particle's z cell (`_slab_multiplicity`), the value
+    the reference's racing `+=` nominally computes.
+
+The impulse runs after integration with cells from the pre-step
+positions, the reference's order (cu:482-489). Particle cells divide by a
+float32 `h` held in a tensor on the particles' device: a python-float
+divisor lets PyTorch's CUDA path multiply by the reciprocal, which moves
+particles on a cell boundary into the next cell.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpusph_torch.core.config import (
+    BOX_MAX_X,
+    BOX_MAX_Y,
+    BOX_MIN_X,
+    BOX_MIN_Y,
+    PUSH_STRENGTH,
+    SimConfig,
+    f32,
+)
+from tpusph_torch.core.state import FluidState
+
+
+def click_in_box(px: int, py: int) -> bool:
+    """Pixel-bounds gate, as in the mouse() callback (display.cpp:24-27)."""
+    return BOX_MIN_X <= px < BOX_MAX_X and BOX_MIN_Y <= py < BOX_MAX_Y
+
+
+def _slab_multiplicity(cfg: SimConfig, device="cpu") -> torch.Tensor:
+    """count[cz] = #slabs t ∈ [0, C) with (int)((t·h)/h) == cz, in float32
+    like the reference's per-thread z (cu:337, 57-59). int32[C]."""
+    c = cfg.num_cells_per_dim
+    h = torch.tensor(f32(cfg.h), dtype=torch.float32)
+    cz = (torch.arange(c, dtype=torch.float32) * h / h).to(torch.int32).clamp(0, c - 1)
+    count = torch.zeros(c, dtype=torch.int32).index_add_(
+        0, cz, torch.ones(c, dtype=torch.int32)
+    )
+    return count.to(device)
+
+
+def click_cell_from_px(px: int, py: int, cfg: SimConfig) -> tuple[int, int]:
+    """Pixel → (cell_x, cell_y flipped) on the host in numpy float32, IEEE
+    division as in the reference's device math (cu:331-340). A click can
+    land on a cell boundary (pixel 400 → x = 5.0, 5.0/0.1f = 49.99999925)."""
+    F = np.float32
+    x = (F(px) - F(BOX_MIN_X)) / F(BOX_MAX_X - BOX_MIN_X) * F(cfg.box_dim)
+    y = (F(py) - F(BOX_MIN_Y)) / F(BOX_MAX_Y - BOX_MIN_Y) * F(cfg.box_dim)
+    cx = int(x / F(cfg.h))
+    cy = cfg.num_cells_per_dim - int(y / F(cfg.h))  # y-flip (cu:340)
+    return cx, cy
+
+
+def click_kick_fields(x, y, z, valid, click_cell, cfg: SimConfig):
+    """Velocity-delta rows (kx, ky, kz), f32[N] each, for a click at grid
+    cell `click_cell` (two ints, from click_cell_from_px), from the cells of
+    the field rows x, y, z."""
+    c = cfg.num_cells_per_dim
+    dev = x.device
+    ccx, ccy = (int(v) for v in click_cell)
+    h = torch.tensor(f32(cfg.h), dtype=torch.float32, device=dev)
+    mult = _slab_multiplicity(cfg, dev)
+
+    pcx, pcy, pcz = ((a / h).to(torch.int32).clamp(0, c - 1) for a in (x, y, z))
+    dx = pcx - ccx
+    dy = pcy - ccy
+    m = mult[pcz.long()].to(torch.float32)
+
+    hit = (dx.abs() <= 2) & (dy.abs() <= 2) & valid
+    push = torch.tensor(PUSH_STRENGTH, dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    fdx = dx.to(torch.float32)
+    fdy = dy.to(torch.float32)
+    kick_x = torch.where(dx != 0, push / torch.where(dx != 0, fdx, one), zero)
+    kick_y = torch.where(dy != 0, push / torch.where(dy != 0, fdy, one), zero)
+    kick_z = torch.where((dx == 0) & (dy == 0), -push, zero)
+    return (
+        torch.where(hit, kick_x * m, zero),
+        torch.where(hit, kick_y * m, zero),
+        torch.where(hit, kick_z * m, zero),
+    )
+
+
+def click_kick(pre_step_position, valid, click_cell, cfg: SimConfig):
+    """Velocity delta f32[N, 3] for a click at grid cell `click_cell`, from
+    the pre-step cells; the (N, 3) form of click_kick_fields."""
+    kx, ky, kz = click_kick_fields(
+        pre_step_position[:, 0], pre_step_position[:, 1], pre_step_position[:, 2],
+        valid, click_cell, cfg,
+    )
+    return torch.stack([kx, ky, kz], dim=-1)
+
+
+def make_impulse(cfg: SimConfig):
+    """`(state, pre_pos, click_px) -> state`: the pixel → cell conversion on
+    the host, the kick on the state's device."""
+
+    def impulse(state: FluidState, pre_pos, click_px) -> FluidState:
+        px, py = (int(v) for v in click_px)
+        kick = click_kick(pre_pos, state.valid, click_cell_from_px(px, py, cfg), cfg)
+        return dataclasses.replace(state, velocity=state.velocity + kick)
+
+    return impulse

@@ -43,6 +43,12 @@ SIGNATURES = {
     # x, y, z, vx, vy, vz, rho, p, key, starts, n, C, num_cells,
     # h, h2, eps, mass, vk, mu, f (3·n field-major), stream
     "tpusph_force": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
+    # x, n, streams, rounds, bf16, out, stream
+    "tpusph_fma_probe": [P, I, I, I, I, P, P],
+    # t, c, pt, rounds, bf16, out, stream
+    "tpusph_density_mix": [P, P, I, I, I, P, P],
+    # desc, t, cand, cap, pt, bl, rounds, variant, out, stream
+    "tpusph_loop_probe": [P, P, P, I, I, I, I, I, P, P],
 }
 
 
