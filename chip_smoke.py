@@ -33,10 +33,33 @@ Phases, each of which raises on failure (exit code 1):
   7. headless free mode through the command line, `python -m tpusph_torch
      -n 262144 -m free --frames 10 --click 2:400,300 --save ...`, run in
      this process: 10 PNGs, a saved state that is finite and inside the
-     box; prints the wall time per frame, set-up and save included.
+     box; prints the wall time per frame, set-up and save included;
+  8. the chained loop, CUDA graphs of chained steps:
+     a. at N = 4096, grid and random init: `simulate_chunk(5)` with a click
+        at step 2 (one graph replay) equals 5 sequential `simulate()` calls
+        bit for bit (snapshots, final velocity), each kernel launched 5×
+        its per-step count; `dispatch_chunk(3)` with packed pixels and with
+        bitmaps equals the projections of the sequential positions;
+     b. at 262,144, grid init: 20 chained fields steps (`make_fields_chain`)
+        against 20 `step_kernels` steps, multiset-compared by nearest
+        neighbour (density rtol 1e-4, positions atol 1e-4); one warm and one
+        timed replay of the 100-step chain from grid init: timesteps/s
+        beside phase 5's, the card's busy share (device time of the CUDA
+        events only, at most 1) and device time by kernel over a profiled
+        replay, each kernel launched 100 times a replay;
+     c. the `cell_list` backend at 4096: 10 steps against the kernels at
+        1e-4; grow-and-replay from tile_cand_capacity 64, step by step and
+        through a 10-step chunk graph (overflow, rewind, capture again),
+        ends with overflow 0 and positions within 1e-6 of an ample-capacity
+        run;
+     d. chunked free mode through the command line, `-n 262144 -m free
+        --frames 32 --viz-chunk 8 --click 2:400,300` (bitmap frames, the
+        default at this N): 32 PNGs; ms per frame beside phase 7's.
 Each path's kernel launch counts are set to 0 just before it and read just
-after. It then prints one JSON line of per-kernel results and, last, one
-JSON line {"ok": true, "device": {...}}.
+after. A wrapper counts where it launches its kernel; inside a CUDA graph
+(phase 8) the launches recorded at capture are what each replay adds
+(`tpusph_torch/engine/graphs.py`). It then prints one JSON line of
+per-kernel results and, last, one JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -62,6 +85,9 @@ WARMUP_STEPS = 3
 CHECK_ROUNDS = 64  # rounds at which the probes are held against their plain versions
 FREE_FRAMES = 10
 FREE_CLICK = "2:400,300"  # frame:pixel, the box centre
+CHAIN_STEPS = 100  # steps per replay of the timed fields chain (bench.py's)
+CHAIN_PARITY_STEPS = 20
+CHUNK_FRAMES, VIZ_CHUNK = 32, 8
 
 
 def require(ok, msg: str) -> None:
@@ -100,6 +126,223 @@ def canon(pos, *fields):
     """Order particle records by position (a multiset compare)."""
     order = np.lexsort(pos.T)
     return (pos[order],) + tuple(f[order] for f in fields)
+
+
+def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> None:
+    """Phase 8 (see the module docstring)."""
+    from tpusph_torch import cli
+    from tpusph_torch.core.config import default_config, tuned_config
+    from tpusph_torch.core.init import init_state
+    from tpusph_torch.engine.simulator import Simulator
+    from tpusph_torch.engine.step import fields_from_state, make_fields_chain, make_step
+    from tpusph_torch.kernels import fused
+    from tpusph_torch.neighbors.cell_list import build_sorted_fields_1d
+    from tpusph_torch.physics.kernels import pressure_from_density
+    from tpusph_torch.viz.project import project_bitmap, project_pixels_packed
+
+    from torch.autograd import DeviceType
+
+    names = ("rank", "density", "force")
+
+    def zero():
+        for fn in kernels:
+            fn.launches = 0
+
+    def counts():
+        return dict(zip(names, (fn.launches for fn in kernels)))
+
+    # a. chunk against sequential steps at 4096
+    cfg4 = default_config(N_PARITY)
+    clicks = {2: (400, 300)}
+    for random_init in (False, True):
+        label = "random" if random_init else "grid"
+
+        def sim():
+            s = Simulator(cfg4, random_init=random_init, seed=5, device=dev)
+            s.setup()
+            return s
+
+        ref = sim()
+        zero()
+        ref.simulate()
+        per_step = counts()
+        ref = sim()
+        chunked = sim()
+        chunked.simulate_chunk(5, clicks=clicks)  # capture and its warm-up
+        chunked.setup()
+        zero()
+        snaps = chunked.simulate_chunk(5, clicks=clicks)
+        replay = counts()
+        for name in names:
+            require(replay[name] == 5 * per_step[name],
+                    f"chunk replay launched {name} {replay[name]} times, not 5 x {per_step[name]}")
+        for k in range(5):
+            ref.simulate(click=clicks.get(k))
+            require(np.array_equal(snaps[k], ref.get_position()),
+                    f"chunk snapshot {k} differs from the sequential step ({label})")
+        require(torch.equal(chunked.state.velocity, ref.state.velocity),
+                f"chunk velocity differs from the sequential steps ({label})")
+        for pack in (True, "bitmap"):
+            a, b = sim(), sim()
+            frames, ovf = a.dispatch_chunk(3, pack_pixels=pack).fetch.wait()
+            require(ovf == 0, f"chunk overflow {ovf}")
+            for k in range(3):
+                b.simulate()
+                if pack == "bitmap":
+                    want = project_bitmap(b.state.position[:N_PARITY])
+                else:
+                    want = project_pixels_packed(b.state.position)[:N_PARITY]
+                require(np.array_equal(frames[k], want.cpu().numpy()),
+                        f"chunk frame {k} ({pack}) differs from the sequential one ({label})")
+        print(f"chunk N={N_PARITY} {label}: 5 steps with a click in one graph replay equal 5 "
+              f"sequential steps bit for bit; packed and bitmap frames equal; launches per "
+              f"replay {replay} (per step {per_step})")
+
+    # b. the fields chain at 262,144
+    cfg = tuned_config(N_MAIN)
+    st0 = init_state(cfg, device=dev)
+    fs0 = fields_from_state(st0)
+    fs20, ovf = make_fields_chain(cfg, CHAIN_PARITY_STEPS, dev)(fs0)
+    require(int(ovf) == 0, f"fields chain overflow {int(ovf)}")
+    step = make_step(cfg, "kernels", dev)
+    st = st0
+    for _ in range(CHAIN_PARITY_STEPS):
+        st, _ = step(st)
+    def particles(fs):
+        """(positions, density) of the live particles of a fields state,
+        the density from one pass of the density kernel over it."""
+        sf = build_sorted_fields_1d(*fs, cfg)
+        rho, _ = pressure_from_density(
+            fused.density(sf.x, sf.y, sf.z, sf.key_sorted, sf.starts, cfg), cfg)
+        v = sf.valid_sorted
+        pos = torch.stack([sf.x, sf.y, sf.z], dim=1)[v]
+        return pos.cpu().numpy(), rho[v].cpu().numpy()
+
+    # A multiset compare by nearest neighbour: at 262,144 many particles
+    # share a lattice coordinate, so a lexicographic order can pair other
+    # particles once rounding splits a tie, and ~5,000 sit on another
+    # particle exactly after 20 steps, so a one-to-one pairing does not
+    # exist. Each run's particles lie within 1e-4 of the other run's, each
+    # coordinate's sorted values agree within 1e-4 (multiplicities), and
+    # the density at paired positions within rtol 1e-4.
+    from scipy.spatial import cKDTree
+
+    pa, ra = particles(fs20)
+    pb, rb = particles(fields_from_state(st))
+    require(len(pa) == len(pb) == N_MAIN, "the fields chain lost particles")
+    _, match = cKDTree(pb).query(pa)
+    _, back = cKDTree(pa).query(pb)
+    np.testing.assert_allclose(pa, pb[match], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(pb, pa[back], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(np.sort(pa, axis=0), np.sort(pb, axis=0), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ra, rb[match], rtol=1e-4, atol=0)
+    pb = pb[match]
+    chain = make_fields_chain(cfg, CHAIN_STEPS, dev)
+    t0 = time.perf_counter()
+    chain(fs0)  # capture (warm-up run included) and the first replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    # every replay starts from grid init, the states phase 5 times
+    chain(fs0)  # warm replay
+    torch.cuda.synchronize()
+    zero()
+    t0 = time.perf_counter()
+    out, ovf = chain(fs0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chain_launches = counts()
+    require(int(ovf) == 0, f"fields chain overflow {int(ovf)}")
+    for name in names:
+        require(chain_launches[name] == CHAIN_STEPS,
+                f"{name} launched {chain_launches[name]} times in a {CHAIN_STEPS}-step replay")
+    for f in out:
+        require(torch.isfinite(f.float()).all(), "non-finite fields after the chain")
+    rate = CHAIN_STEPS / wall
+    print(f"fields chain N={N_MAIN}: {CHAIN_PARITY_STEPS} chained steps match "
+          f"{CHAIN_PARITY_STEPS} step_kernels steps (density rtol 1e-4, positions atol "
+          f"1e-4, multisets; max|dpos| {np.abs(pa - pb).max():.3e}); capture "
+          f"{capture_s:.3f} s")
+    print(f"chained timesteps/s: {rate:.3f} ({CHAIN_STEPS} steps in one replay, "
+          f"{wall * 1e3:.3f} ms) beside simulate_and_time {timed_rate:.3f} (phase 5); "
+          f"launches per replay {chain_launches}; {card}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chain(fs0)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    # Only the device's own events: a host op's self device time repeats
+    # the time of the kernels it launched.
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us > 0:
+        share = device_us / 1e6 / prof_wall
+        require(share <= 1, f"busy share {share:.3f} above 1: device time counted twice")
+        print(f"chained busy share: {share:.3f} (device "
+              f"{device_us / 1e3:.3f} ms over {prof_wall * 1e3:.3f} ms wall, profiled "
+              f"replay; {card})")
+        top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / CHAIN_STEPS:.4f}"
+                        for e in events[:8] if e.self_device_time_total > 0)
+        print(f"chained device ms per step by kernel: {top}")
+    else:
+        print("chained busy share: not measured (the profiler shows no device time "
+              "inside the graph replay)")
+
+    # c. the cell_list backend at 4096
+    def cell_list_run(backend, **kw):
+        s = Simulator(default_config(N_PARITY, **kw), backend=backend, device=dev)
+        s.setup()
+        for _ in range(10):
+            s.simulate()
+        return s
+
+    kern = cell_list_run("kernels")
+    ample = cell_list_run("cell_list")
+    small = cell_list_run("cell_list", tile_cand_capacity=64)
+    np.testing.assert_allclose(ample.get_position(), kern.get_position(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ample.state.density.cpu(), kern.state.density.cpu(), rtol=1e-4)
+    require(small.cfg.tile_cand_capacity > 64, "the cell_list capacity did not grow")
+    require(int(small.last_aux.window_overflow) == 0, "overflow after growing")
+    np.testing.assert_allclose(small.get_position(), ample.get_position(), rtol=0, atol=1e-6)
+    # the same growth through a chunk graph: overflow, rewind, capture again
+    chunked = Simulator(default_config(N_PARITY, tile_cand_capacity=64), backend="cell_list",
+                        device=dev)
+    chunked.setup()
+    snaps = chunked.simulate_chunk(10)
+    require(chunked.cfg.tile_cand_capacity > 64, "the cell_list chunk capacity did not grow")
+    np.testing.assert_allclose(snaps[-1], ample.get_position(), rtol=0, atol=1e-6)
+    print(f"cell_list N={N_PARITY}: 10 steps match the kernels (1e-4); from capacity 64 "
+          f"grown to {small.cfg.tile_cand_capacity} (simulate) and "
+          f"{chunked.cfg.tile_cand_capacity} (a 10-step chunk graph), overflow 0, positions "
+          f"within 1e-6")
+
+    # d. chunked free mode through the command line
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["-n", str(N_MAIN), "-m", "free", "--frames", str(CHUNK_FRAMES),
+                "--viz-chunk", str(VIZ_CHUNK), "--click", FREE_CLICK, "--out", tmp,
+                "--device", str(dev)]
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+        chunk_launches = counts()
+        require(rc == 0, f"chunked free mode exited {rc}")
+        pngs = sorted(f for f in os.listdir(tmp) if f.endswith(".png"))
+        require(len(pngs) == CHUNK_FRAMES, f"chunked free mode wrote {len(pngs)} frames")
+        for name in pngs:
+            with open(os.path.join(tmp, name), "rb") as f:
+                require(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{name} is not a PNG")
+    for name in names:
+        require(chunk_launches[name] >= CHUNK_FRAMES,
+                f"{name} launched {chunk_launches[name]} times in chunked free mode")
+    print(f"chunked free mode: python -m tpusph_torch {' '.join(argv[:10])}: "
+          f"{CHUNK_FRAMES} frames, {chunk_s:.3f} s, {chunk_s / CHUNK_FRAMES * 1e3:.2f} ms "
+          f"per frame with set-up and capture, beside {free_ms:.2f} unchunked (phase 7); "
+          f"launches {chunk_launches}; {card}")
 
 
 def main() -> int:
@@ -257,7 +500,8 @@ def main() -> int:
     launches = {name: fn.launches for name, fn in zip(results, kernels)}
     print(format_times(times))
     phase_s = times.build_grid + times.sph_update + times.memcpy
-    print(f"timesteps/s: {times.iters / phase_s:.3f} (N={N_MAIN} grid init, "
+    timed_rate = times.iters / phase_s
+    print(f"timesteps/s: {timed_rate:.3f} (N={N_MAIN} grid init, "
           f"{TIMED_STEPS} steps; {card})")
     print(f"peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     print(f"launches in the main path: {launches}")
@@ -464,9 +708,12 @@ def main() -> int:
     pos = state.position.numpy()[v]
     require(pos.min() >= lo - 1e-6 and pos.max() <= hi + 1e-6,
             "particle outside the box in free mode")
+    free_ms = free_s / FREE_FRAMES * 1e3
     print(f"free mode: python -m tpusph_torch {' '.join(argv[:8])}: {FREE_FRAMES} frames, "
-          f"{free_s:.3f} s, {free_s / FREE_FRAMES * 1e3:.2f} ms per frame with set-up "
+          f"{free_s:.3f} s, {free_ms:.2f} ms per frame with set-up "
           f"and save ({card})")
+
+    chained_loop(card, kernels, timed_rate, free_ms, dev)
 
     table = [
         {"name": name, "route": r["route"], "source": r["source"],

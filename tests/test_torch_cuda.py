@@ -247,3 +247,123 @@ def test_static_trip_refuses_other_round_counts(dev):
     with pytest.raises(ValueError):
         probes.loop_probe("V0", desc, t, cand, 8, 256)
     probes.loop_probe("V2", desc, t, cand, 8, 256)  # the trip count comes from desc
+
+
+# ------------------------------------------- CUDA graphs of chained steps
+
+
+def _counts():
+    return {fn: fn.launches for fn in (qrank.rank_queries, fused.density, fused.force)}
+
+
+@pytest.mark.parametrize("random_init", [False, True], ids=["grid", "random"])
+def test_chunk_graph_equals_sequential_steps(dev, random_init):
+    """simulate_chunk(5) with a click at step 2, one graph replay, equals 5
+    sequential simulate() calls bit for bit (snapshots and the final
+    velocity); each kernel ran 5 times per replay; the frame streams equal
+    the projections of the sequential positions."""
+    from tpusph_torch.viz.project import project_bitmap, project_pixels_packed
+
+    n, clicks = 4096, {2: (400, 300)}
+    cfg = default_config(n, chunk_size=1024)
+    sim = Simulator(cfg, random_init=random_init, seed=5, device=dev)
+    ref = Simulator(cfg, random_init=random_init, seed=5, device=dev)
+    sim.setup()
+    ref.setup()
+    sim.simulate_chunk(5, clicks=clicks)  # capture (and its warm-up)
+    sim.setup()
+    before = _counts()
+    pos = sim.simulate_chunk(5, clicks=clicks)
+    for fn, c in _counts().items():
+        assert c - before[fn] == 5, fn.__name__
+    for k in range(5):
+        ref.simulate(click=clicks.get(k))
+        np.testing.assert_array_equal(pos[k], ref.get_position(), err_msg=str(k))
+    assert torch.equal(sim.state.velocity, ref.state.velocity)
+    for pack, proj in ((True, project_pixels_packed), ("bitmap", project_bitmap)):
+        a, b = (Simulator(cfg, random_init=random_init, seed=5, device=dev) for _ in range(2))
+        a.setup()
+        b.setup()
+        frames, ovf = a.dispatch_chunk(3, pack_pixels=pack).fetch.wait()
+        assert ovf == 0
+        for k in range(3):
+            b.simulate()
+            rows = b.state.position[:n] if pack == "bitmap" else b.state.position
+            want = proj(rows).cpu().numpy()
+            np.testing.assert_array_equal(frames[k], want[:n] if pack is True else want)
+
+
+def test_chunks_in_flight_keep_their_outputs(dev):
+    """Two chunks dispatched before either is read: the second replay of the
+    same graph does not overwrite the first chunk's snapshots or state."""
+    n = 4096
+    cfg = default_config(n, chunk_size=1024)
+    sim, ref = Simulator(cfg, device=dev), Simulator(cfg, device=dev)
+    sim.setup()
+    ref.setup()
+    h1 = sim.dispatch_chunk(3)
+    mid = sim.state
+    h2 = sim.dispatch_chunk(3)
+    want = []
+    for _ in range(6):
+        ref.simulate()
+        want.append(ref.get_position())
+    for k, snap in enumerate(np.concatenate([h1.fetch.wait()[0], h2.fetch.wait()[0]])):
+        np.testing.assert_array_equal(snap, want[k], err_msg=str(k))
+    sim.rewind_chunk(h2, grow=False)
+    assert sim.state is mid
+    np.testing.assert_array_equal(sim.get_position(), want[2])
+
+
+def test_fields_chain_graph_equals_eager_steps(dev):
+    from tpusph_torch.engine.step import fields_from_state, make_fields_chain, step_kernels_fields
+
+    n = 4096
+    cfg = default_config(n, chunk_size=1024)
+    fs0 = fields_from_state(init_state(cfg, device=dev))
+    chain = make_fields_chain(cfg, 20, dev)
+    chain(fs0)  # capture
+    before = _counts()
+    out, ovf = chain(fs0)
+    for fn, c in _counts().items():
+        assert c - before[fn] == 20, fn.__name__
+    assert int(ovf) == 0
+    fs = fs0
+    for _ in range(20):
+        (fs, _, _, _), _ = step_kernels_fields(fs, cfg)
+    for a, b in zip(out, fs):
+        assert torch.equal(a, b)
+
+
+def test_cell_list_backend_grows_and_matches_kernels(dev):
+    n = 4096
+    small = Simulator(default_config(n, chunk_size=1024, tile_cand_capacity=64),
+                      backend="cell_list", device=dev)
+    ample = Simulator(default_config(n, chunk_size=1024), backend="cell_list", device=dev)
+    kern = Simulator(default_config(n, chunk_size=1024), device=dev)
+    for s in (small, ample, kern):
+        s.setup()
+        for _ in range(10):
+            s.simulate()
+    assert small.cfg.tile_cand_capacity > 64
+    np.testing.assert_allclose(small.get_position(), ample.get_position(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ample.get_position(), kern.get_position(), rtol=0, atol=1e-4)
+
+
+def test_cell_list_chunk_graph_grows_and_replays(dev):
+    """The chunk graph runs the Simulator's own backend: a cell_list chunk
+    from tile_cand_capacity 64 overflows, rewinds, is captured again at the
+    grown capacity, and its snapshots equal ample-capacity sequential steps
+    within 1e-6."""
+    n = 4096
+    small = Simulator(default_config(n, chunk_size=1024, tile_cand_capacity=64),
+                      backend="cell_list", device=dev)
+    ample = Simulator(default_config(n, chunk_size=1024), backend="cell_list", device=dev)
+    small.setup()
+    ample.setup()
+    pos = small.simulate_chunk(5)
+    assert small.cfg.tile_cand_capacity > 64
+    for k in range(5):
+        ample.simulate()
+        np.testing.assert_allclose(pos[k], ample.get_position(), rtol=0, atol=1e-6,
+                                   err_msg=str(k))

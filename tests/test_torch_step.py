@@ -177,7 +177,10 @@ def test_port_never_imports_jax():
         "import sys, tpusph_torch, tpusph_torch.cli, tpusph_torch.core.io, "
         "tpusph_torch.utils.cuda_build, tpusph_torch.kernels.probes, "
         "tpusph_torch.scripts.vpu_microbench, tpusph_torch.scripts.loop_probe, "
-        "tpusph_torch.interact.impulse, tpusph_torch.viz.render\n"
+        "tpusph_torch.interact.impulse, tpusph_torch.viz.render, "
+        "tpusph_torch.viz.project, tpusph_torch.engine.graphs, tpusph_torch.engine.step, "
+        "tpusph_torch.engine.simulator, tpusph_torch.neighbors.cell_list, "
+        "tpusph_torch.utils.chunking\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpusph')]\n"
         "assert not bad, bad\n"
     )

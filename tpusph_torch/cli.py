@@ -8,8 +8,12 @@ the Times table. Free mode is the headless frame dump of `--frames N`
 (`--out DIR`, scripted clicks `--click frame:px,py`, repeatable).
 `--save PATH` checkpoints the final state and `--load PATH` resumes one,
 in the `.npz` format both packages read. Extra flags: --steps, --warmup,
---seed and --device (default cuda). --mesh is not ported yet and exits
-with an error.
+--seed, --device (default cuda), --backend (kernels, the default, also
+under tpusph's names auto and pallas, so tpusph's command lines run
+unchanged; cell_list; allpairs) and --viz-chunk (free mode: steps per
+dispatch). --mesh is not ported yet and exits with an error; tpusph's
+--window-capacity is not taken, because it sizes the Pallas window prep,
+which the port's kernels do without.
 """
 
 from __future__ import annotations
@@ -46,6 +50,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--seed", type=int, default=0, help="generator seed for -i random")
     p.add_argument("--device", type=str, default="cuda", help="torch device")
+    p.add_argument(
+        "--backend", choices=["auto", "kernels", "pallas", "cell_list", "allpairs"],
+        default="auto",
+        help="step backend: kernels (the CUDA kernels; auto and pallas name it "
+        "too), cell_list (plain-torch tile passes) or allpairs (O(N^2) oracle)",
+    )
+    p.add_argument(
+        "--viz-chunk", type=int, default=None, metavar="S",
+        help="free mode with --frames: steps per dispatch, one CUDA-graph "
+        "replay each, frames projected on the device. Default: "
+        "TPUSPH_VIZ_CHUNK, else one step at a time",
+    )
     p.add_argument("--frames", type=int, default=0, help="free mode: frame-dump count")
     p.add_argument("--out", type=str, default="frames", help="free mode: output dir")
     p.add_argument(
@@ -123,7 +139,10 @@ def main(argv: list[str] | None = None) -> int:
             )
             random_init = True
 
-    sim = Simulator(cfg, random_init=random_init, seed=args.seed, device=args.device)
+    backend = "kernels" if args.backend in ("auto", "pallas") else args.backend
+    sim = Simulator(
+        cfg, backend=backend, random_init=random_init, seed=args.seed, device=args.device
+    )
     sim.setup(loaded_state)
 
     if args.exec_mode == "time":
@@ -140,7 +159,9 @@ def main(argv: list[str] | None = None) -> int:
         from tpusph_torch.viz.render import run_free_mode
 
         try:
-            run_free_mode(sim, frames=args.frames, out_dir=args.out, clicks=clicks)
+            run_free_mode(
+                sim, frames=args.frames, out_dir=args.out, clicks=clicks, chunk=args.viz_chunk
+            )
         except NotImplementedError as e:
             print(f"sph: {e}", file=sys.stderr)
             return 2

@@ -10,17 +10,28 @@ simulator.h:53-74 and simulator.cu:370-546). Counterpart of
   * get_position_async()      the in-flight copy of the current positions
   * move_particles(click)     declared but never defined in the reference
                               (simulator.h:73); implemented as in tpusph
+  * dispatch_chunk(S, ...)    S steps in one dispatch (the JAX package's
+    rewind_chunk(handle)      `lax.scan` chunk): one CUDA-graph replay per
+    simulate_chunk(S, ...)    chunk on a card, the same loop eagerly on the
+                              CPU; snapshots come back in one copy
 
 State stays on the device across steps. Each timed phase ends in a
 synchronize of the compute stream, so it measures device time as the
 reference's do; the copy of the positions to the host runs on a side
-stream into pinned memory and overlaps the next step (`AsyncPositionFetch`).
-The JAX package's chunked scan (`dispatch_chunk`, `AsyncChunkFetch`,
-`rewind_chunk`, `simulate_chunk`) is not ported yet.
+stream into pinned memory and overlaps the next step (`AsyncPositionFetch`,
+`AsyncChunkFetch`).
+
+Capacity: the `cell_list` backend's tile passes have a fixed candidate
+capacity and count what overflows it. `simulate`, `simulate_and_time` and
+`simulate_chunk` replay a step or chunk that overflowed with a doubled
+capacity (`_grow_capacity`), as tpusph does, so no pair is dropped. The
+kernels have no capacity: their overflow is the int 0, so on the default
+backend no retry fires and no overflow is read back from the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 
@@ -30,9 +41,19 @@ import torch
 from tpusph_torch.bench.times import Times
 from tpusph_torch.core.config import SimConfig
 from tpusph_torch.core.init import init_state
-from tpusph_torch.core.state import FluidState
-from tpusph_torch.engine.step import build_phase, make_step, update_phase_kernels
-from tpusph_torch.interact.impulse import click_in_box, make_impulse
+from tpusph_torch.core.state import FIELDS, FluidState
+from tpusph_torch.engine.graphs import GraphedLoop
+from tpusph_torch.engine.step import (
+    BACKENDS,
+    build_phase,
+    make_step,
+    update_phase,
+    update_phase_kernels,
+)
+from tpusph_torch.interact.impulse import apply_kick, click_cell_from_px, click_in_box, make_impulse
+from tpusph_torch.viz.project import project_bitmap, project_pixels_packed
+
+GROWTH_RETRIES = 8  # capacity doublings before a step is given up
 
 
 class AsyncPositionFetch:
@@ -57,18 +78,7 @@ class AsyncPositionFetch:
         self._done: torch.cuda.Event | None = None
         self.buffer: torch.Tensor | None = None  # pinned host tensor (CUDA)
         if position.device.type == "cuda":
-            dev = position.device
-            side = _side_stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            self.buffer = torch.empty(
-                (num_particles,) + tuple(position.shape[1:]),
-                dtype=position.dtype, pin_memory=True,
-            )
-            with torch.cuda.stream(side):
-                self.buffer.copy_(position[:num_particles], non_blocking=True)
-                self._done = torch.cuda.Event()
-                self._done.record(side)
-            position.record_stream(side)
+            (self.buffer,), self._done = _copy_to_host([position[:num_particles]])
 
     def matches(self, position: torch.Tensor) -> bool:
         """True when this fetch copies exactly `position` (by identity)."""
@@ -90,6 +100,98 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
+def _copy_to_host(srcs: list[torch.Tensor]):
+    """Start copies of the CUDA tensors `srcs` to the host: the side stream
+    waits for the work queued so far on the compute stream and copies each
+    into a fresh pinned tensor. Returns (host tensors, completion event).
+    `record_stream` keeps the caching allocator from handing a source's
+    memory to later work while the side stream still reads it."""
+    dev = srcs[0].device
+    side = _side_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in srcs]
+    with torch.cuda.stream(side):
+        for host, src in zip(hosts, srcs):
+            host.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    for src in srcs:
+        src.record_stream(side)
+    return hosts, done
+
+
+class AsyncChunkFetch:
+    """An in-flight copy of one chunk's snapshot stack and its summed
+    overflow to the host, made as `AsyncPositionFetch`'s is. `wait()` →
+    (snapshots as numpy, cut to `num_particles` rows per step unless that
+    is None, overflow as an int)."""
+
+    def __init__(self, snaps: torch.Tensor, overflow: torch.Tensor, num_particles: int | None):
+        self._src = (snaps, overflow)
+        self._n = num_particles
+        self._host: tuple[np.ndarray, int] | None = None
+        self._done: torch.cuda.Event | None = None
+        if snaps.device.type == "cuda":
+            self._src, self._done = _copy_to_host([snaps, overflow])
+
+    def wait(self) -> tuple[np.ndarray, int]:
+        if self._host is None:
+            if self._done is not None:
+                self._done.synchronize()
+            snaps, ovf = self._src
+            snaps = snaps.numpy() if self._done is not None else snaps.numpy().copy()
+            self._host = (snaps if self._n is None else snaps[:, : self._n], int(ovf))
+        return self._host
+
+
+@dataclasses.dataclass
+class ChunkHandle:
+    """One dispatched chunk: the pre-chunk state (kept for the rewind on
+    overflow), the fetch in flight, and the chunk's step count."""
+
+    pre_state: FluidState
+    fetch: AsyncChunkFetch
+    n_steps: int
+
+
+def _snapshot(position: torch.Tensor, pack, num_particles: int) -> torch.Tensor:
+    """One step's frame: positions, packed pixels (pack True) or the
+    occupancy bitmap of the live rows (pack "bitmap": padding slots park at
+    the origin, which projects inside the frame)."""
+    if pack == "bitmap":
+        return project_bitmap(position[:num_particles])
+    if pack:
+        return project_pixels_packed(position)
+    return position
+
+
+def _make_chunk(cfg: SimConfig, backend: str, n_steps: int, pack, device) -> GraphedLoop:
+    """`[*state fields, cells int32[S, 2], gains int32[S]] -> [*state
+    fields, snapshots, overflow int32[]]`: S steps of `backend`, each
+    followed by the click kick of its gain (from that step's pre-step
+    positions), the composition `simulate(click=...)` runs step by step, so
+    the snapshots equal the sequential loop's bit for bit. One CUDA graph on
+    a card, the same loop eagerly on the CPU (`GraphedLoop`)."""
+    step = BACKENDS[backend]
+
+    def chunk(inputs: list) -> list:
+        *fields, cells, gains = inputs
+        state = FluidState(*fields)
+        ovf = torch.zeros((), dtype=torch.int32, device=state.device)
+        snaps = []
+        for j in range(n_steps):
+            new, aux = step(state, cfg)
+            new.velocity = apply_kick(
+                new.velocity, state.position, new.valid, cells[j], gains[j], cfg
+            )
+            snaps.append(_snapshot(new.position, pack, cfg.num_particles))
+            ovf = ovf + aux.window_overflow
+            state = new
+        return [*(getattr(state, f) for f in FIELDS), torch.stack(snaps), ovf]
+
+    return GraphedLoop(chunk, device)
+
+
 class Simulator:
     def __init__(
         self,
@@ -104,12 +206,16 @@ class Simulator:
         self.random_init = random_init
         self.seed = seed
         self.device = torch.device(device)
-        self._step = make_step(cfg, backend, self.device)
-        self._impulse = make_impulse(cfg)
         self.state: FluidState | None = None
         self.last_aux = None
         self._position_host: np.ndarray | None = None
         self._pending_fetch: AsyncPositionFetch | None = None
+        self._build_fns()
+
+    def _build_fns(self) -> None:
+        self._step = make_step(self.cfg, self.backend, self.device)
+        self._impulse = make_impulse(self.cfg)
+        self._chunk_cache: dict = {}
 
     def setup(self, state: FluidState | None = None) -> None:
         """Initial particle state (Simulator::setup, cu:411-460), or `state`
@@ -128,13 +234,30 @@ class Simulator:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
+    def _grow_capacity(self) -> None:
+        """Double the tile passes' candidate capacity, rebuild the step and
+        drop the captured chunks. The JAX package also doubles its window
+        and `pallas_*` capacities, which size its Pallas window prep; the
+        port's kernels have none."""
+        self.cfg = dataclasses.replace(
+            self.cfg, tile_cand_capacity=self.cfg.tile_cand_capacity * 2
+        )
+        self._build_fns()
+
     def simulate(self, click: tuple[int, int] | None = None) -> None:
         """One untimed timestep, then the click impulse if `click` (pixel
         coordinates) lies in the box, with cells taken from the pre-step
-        positions (cu:462-497)."""
+        positions (cu:462-497). A step whose windows overflowed is replayed
+        with doubled capacity."""
         assert self.state is not None, "call setup() first"
         pre_pos = self.state.position
-        new_state, aux = self._step(self.state)
+        for _ in range(GROWTH_RETRIES):
+            new_state, aux = self._step(self.state)
+            if int(aux.window_overflow) == 0:
+                break
+            self._grow_capacity()
+        else:
+            raise RuntimeError("window capacity growth failed to converge")
         if click is not None and click_in_box(*click):
             new_state = self._impulse(new_state, pre_pos, click)
         self.state = new_state
@@ -146,22 +269,33 @@ class Simulator:
         grid build, SPH update, copy of the positions to the host. The copy
         is double-buffered as in tpusph: the phase waits for the previous
         step's copy, which overlapped this step's build and update, and
-        starts this step's copy."""
+        starts this step's copy. A step that overflowed is replayed, untimed
+        seconds rolled back, with doubled capacity; `iters` counts only
+        steps that stood."""
         assert self.state is not None, "call setup() first"
-        if self.backend != "kernels":
-            raise ValueError("timed mode needs the 'kernels' backend")
+        if self.backend not in ("kernels", "cell_list"):
+            raise ValueError("timed mode needs the 'kernels' or 'cell_list' backend")
         cfg = self.cfg
+        tiles = self.backend == "cell_list"
+        build0, update0, memcpy0 = times.build_grid, times.sph_update, times.memcpy
 
         t0 = time.perf_counter()
-        cl = build_phase(self.state, cfg)
+        cl = build_phase(self.state, cfg, histogram=tiles)
         self._sync()
         t1 = time.perf_counter()
         times.build_grid += t1 - t0
 
-        new_state, aux = update_phase_kernels(self.state, cl, cfg)
+        update = update_phase if tiles else update_phase_kernels
+        new_state, aux = update(self.state, cl, cfg)
         self._sync()
         t2 = time.perf_counter()
         times.sph_update += t2 - t1
+
+        if int(aux.window_overflow) > 0:
+            times.build_grid, times.sph_update, times.memcpy = build0, update0, memcpy0
+            self._grow_capacity()
+            self.simulate_and_time(times)
+            return
 
         if self._pending_fetch is not None:
             self._position_host = self._pending_fetch.wait()
@@ -172,6 +306,61 @@ class Simulator:
         self.state = new_state
         self.last_aux = aux
         times.iters += 1
+
+    # ------------------------------------------------------ chunked stepping
+    def _chunk_fn(self, n_steps: int, pack_pixels=False) -> GraphedLoop:
+        """The chunk of `n_steps` steps with frames `pack_pixels` (False:
+        positions f32[S, Np, 3]; True: packed pixels int32[S, Np]; "bitmap":
+        occupancy bitmaps uint8[S, H, W/8]), one per (n_steps, pack) of the
+        current cfg; on a card each holds its CUDA graph."""
+        key = (n_steps, pack_pixels)
+        if key not in self._chunk_cache:
+            self._chunk_cache[key] = _make_chunk(
+                self.cfg, self.backend, n_steps, pack_pixels, self.device
+            )
+        return self._chunk_cache[key]
+
+    def dispatch_chunk(self, n_steps: int, clicks=None, pack_pixels=False) -> ChunkHandle:
+        """Advance `n_steps` steps in one dispatch, speculatively: the
+        handle's overflow arrives with the snapshots; on overflow call
+        rewind_chunk and dispatch again. clicks: {local step: (px, py)},
+        applied after their step like simulate(click=...)."""
+        assert self.state is not None, "call setup() first"
+        cells = torch.zeros((n_steps, 2), dtype=torch.int32)
+        gains = torch.zeros((n_steps,), dtype=torch.int32)
+        for j, (px, py) in (clicks or {}).items():
+            if click_in_box(px, py):
+                cells[j] = torch.tensor(click_cell_from_px(px, py, self.cfg), dtype=torch.int32)
+                gains[j] = 1
+        pre = self.state
+        *fields, snaps, ovf = self._chunk_fn(n_steps, pack_pixels)(
+            [*(getattr(pre, f) for f in FIELDS), cells, gains]
+        )
+        self.state = FluidState(*fields)
+        self._position_host = None
+        self._pending_fetch = None
+        rows = None if pack_pixels == "bitmap" else self.cfg.num_particles
+        return ChunkHandle(pre_state=pre, fetch=AsyncChunkFetch(snaps, ovf, rows), n_steps=n_steps)
+
+    def rewind_chunk(self, handle: ChunkHandle, grow: bool = True) -> None:
+        """Overflow recovery: restore the pre-chunk state (dropping this
+        chunk and any dispatched after it) and double the capacities."""
+        self.state = handle.pre_state
+        self._position_host = None
+        self._pending_fetch = None
+        if grow:
+            self._grow_capacity()
+
+    def simulate_chunk(self, n_steps: int, clicks=None) -> np.ndarray:
+        """Chunked advance with the capacity-growth retry folded in: the
+        f32[S, N, 3] stack of per-step positions."""
+        for _ in range(GROWTH_RETRIES):
+            handle = self.dispatch_chunk(n_steps, clicks)
+            pos, ovf = handle.fetch.wait()
+            if ovf == 0:
+                return pos
+            self.rewind_chunk(handle)
+        raise RuntimeError("window capacity growth failed to converge")
 
     def get_position(self) -> np.ndarray:
         """Host f32[N, 3] positions (getPosition, cu:407-409). Joins the

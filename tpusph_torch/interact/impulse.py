@@ -16,11 +16,20 @@ positions, the reference's order (cu:482-489). Particle cells divide by a
 float32 `h` held in a tensor on the particles' device: a python-float
 divisor lets PyTorch's CUDA path multiply by the reciprocal, which moves
 particles on a cell boundary into the next cell.
+
+The kick can be captured in a CUDA graph: the click cell may be a device
+int32[2] tensor, and `h` (`grid.h_tensor`), the push and the
+multiplicity table are made once per (cfg, device) at the first kick,
+which the warm-up before a capture runs. `apply_kick` gates the kick with a
+device int32 gain, `torch.where(gain > 0, v + kick, v)`: with gain 0 the
+velocity is left bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +44,7 @@ from tpusph_torch.core.config import (
     f32,
 )
 from tpusph_torch.core.state import FluidState
+from tpusph_torch.neighbors.grid import h_tensor
 
 
 def click_in_box(px: int, py: int) -> bool:
@@ -54,6 +64,21 @@ def _slab_multiplicity(cfg: SimConfig, device="cpu") -> torch.Tensor:
     return count.to(device)
 
 
+class _KickConstants(NamedTuple):
+    push: torch.Tensor  # f32[] PUSH_STRENGTH, a tensor so push / dx divides
+    mult: torch.Tensor  # f32[C] slab multiplicity
+
+
+@functools.cache
+def _kick_constants(cfg: SimConfig, device: torch.device) -> _KickConstants:
+    """The kick's constants on `device`, made once per (cfg, device); the
+    kick reads them and never writes them."""
+    return _KickConstants(
+        push=torch.full((), PUSH_STRENGTH, dtype=torch.float32, device=device),
+        mult=_slab_multiplicity(cfg, device).to(torch.float32),
+    )
+
+
 def click_cell_from_px(px: int, py: int, cfg: SimConfig) -> tuple[int, int]:
     """Pixel → (cell_x, cell_y flipped) on the host in numpy float32, IEEE
     division as in the reference's device math (cu:331-340). A click can
@@ -68,32 +93,28 @@ def click_cell_from_px(px: int, py: int, cfg: SimConfig) -> tuple[int, int]:
 
 def click_kick_fields(x, y, z, valid, click_cell, cfg: SimConfig):
     """Velocity-delta rows (kx, ky, kz), f32[N] each, for a click at grid
-    cell `click_cell` (two ints, from click_cell_from_px), from the cells of
-    the field rows x, y, z."""
+    cell `click_cell` (two ints from click_cell_from_px, or a device int32[2]
+    tensor), from the cells of the field rows x, y, z."""
     c = cfg.num_cells_per_dim
-    dev = x.device
-    ccx, ccy = (int(v) for v in click_cell)
-    h = torch.tensor(f32(cfg.h), dtype=torch.float32, device=dev)
-    mult = _slab_multiplicity(cfg, dev)
+    k = _kick_constants(cfg, x.device)
+    h = h_tensor(cfg, x.device)
+    ccx, ccy = click_cell[0], click_cell[1]
 
     pcx, pcy, pcz = ((a / h).to(torch.int32).clamp(0, c - 1) for a in (x, y, z))
     dx = pcx - ccx
     dy = pcy - ccy
-    m = mult[pcz.long()].to(torch.float32)
+    m = k.mult[pcz.long()]
 
     hit = (dx.abs() <= 2) & (dy.abs() <= 2) & valid
-    push = torch.tensor(PUSH_STRENGTH, dtype=torch.float32, device=dev)
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     fdx = dx.to(torch.float32)
     fdy = dy.to(torch.float32)
-    kick_x = torch.where(dx != 0, push / torch.where(dx != 0, fdx, one), zero)
-    kick_y = torch.where(dy != 0, push / torch.where(dy != 0, fdy, one), zero)
-    kick_z = torch.where((dx == 0) & (dy == 0), -push, zero)
+    kick_x = torch.where(dx != 0, k.push / torch.where(dx != 0, fdx, 1.0), 0.0)
+    kick_y = torch.where(dy != 0, k.push / torch.where(dy != 0, fdy, 1.0), 0.0)
+    kick_z = torch.where((dx == 0) & (dy == 0), -k.push, 0.0)
     return (
-        torch.where(hit, kick_x * m, zero),
-        torch.where(hit, kick_y * m, zero),
-        torch.where(hit, kick_z * m, zero),
+        torch.where(hit, kick_x * m, 0.0),
+        torch.where(hit, kick_y * m, 0.0),
+        torch.where(hit, kick_z * m, 0.0),
     )
 
 
@@ -105,6 +126,14 @@ def click_kick(pre_step_position, valid, click_cell, cfg: SimConfig):
         valid, click_cell, cfg,
     )
     return torch.stack([kx, ky, kz], dim=-1)
+
+
+def apply_kick(velocity, pre_step_position, valid, click_cell, gain, cfg: SimConfig):
+    """velocity + the kick of a click at `click_cell` where the int32 `gain`
+    is > 0, `velocity` itself where it is 0; no host read, so a chunk
+    captured in a CUDA graph takes its clicks as device tensors."""
+    kick = click_kick(pre_step_position, valid, click_cell, cfg)
+    return torch.where(gain > 0, velocity + kick, velocity)
 
 
 def make_impulse(cfg: SimConfig):

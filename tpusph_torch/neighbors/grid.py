@@ -10,11 +10,14 @@ the sentinel key `num_cells`.
 The division is a true float32 division by a float32 `h` held in a
 tensor on the particles' device. Dividing by a python float would let
 PyTorch's CUDA path multiply by the reciprocal instead, which moves some
-keys across a cell edge.
+keys across a cell edge. That tensor is one constant per (cfg, device),
+made at its first use, so a step captured in a CUDA graph after a
+warm-up step makes no copy from the host.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -22,10 +25,16 @@ import torch
 from tpusph_torch.core.config import SimConfig, f32
 
 
+@functools.cache
+def h_tensor(cfg: SimConfig, device: torch.device) -> torch.Tensor:
+    """float32 `h` as a 0-d tensor on `device`, the cell-key divisor. The
+    same tensor for every call with (cfg, device); callers never write it."""
+    return torch.full((), f32(cfg.h), dtype=torch.float32, device=device)
+
+
 def cell_coords(position: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     """f32[..., 3] → int32[..., 3], truncated like the reference's cast."""
-    h = torch.tensor(f32(cfg.h), dtype=torch.float32, device=position.device)
-    return (position / h).to(torch.int32)
+    return (position / h_tensor(cfg, position.device)).to(torch.int32)
 
 
 class GridKeys(NamedTuple):
@@ -52,7 +61,7 @@ def compute_keys(position: torch.Tensor, valid: torch.Tensor, cfg: SimConfig) ->
 def compute_keys_fields(x, y, z, valid, cfg: SimConfig):
     """compute_keys on 1-D field rows. Returns (key int32[N], oob_count)."""
     c = cfg.num_cells_per_dim
-    h = torch.tensor(f32(cfg.h), dtype=torch.float32, device=x.device)
+    h = h_tensor(cfg, x.device)
     cx, cy, cz = ((a / h).to(torch.int32) for a in (x, y, z))
     oob = (cx < 0) | (cx >= c) | (cy < 0) | (cy >= c) | (cz < 0) | (cz >= c)
     return _flat_key(cx, cy, cz, valid, cfg), (oob & valid).sum()

@@ -8,6 +8,8 @@ simulator.cu:258-318). Counterpart of `tpusph/physics/integrate.py`:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,11 +30,17 @@ def _reflect(p, v, cfg: SimConfig):
     return p, v
 
 
+@functools.cache
+def _gravity(cfg: SimConfig, device: torch.device) -> torch.Tensor:
+    """f32[3] (0, g, 0) on `device`, made once per (cfg, device) so that a
+    step captured in a CUDA graph after a warm-up step copies nothing from
+    the host."""
+    return torch.tensor([0.0, f32(cfg.gravity), 0.0], dtype=torch.float32, device=device)
+
+
 def integrate(position, velocity, force, density, cfg: SimConfig):
     """Returns (new_position, new_velocity); shapes [N,3],[N,3],[N,3],[N]."""
-    g = torch.tensor(
-        [0.0, f32(cfg.gravity), 0.0], dtype=torch.float32, device=position.device
-    )
+    g = _gravity(cfg, position.device)
     v = velocity + f32(cfg.dt) * (force / density[:, None] + g)
     x = position + f32(cfg.dt) * v
     return _reflect(x, v, cfg)
