@@ -8,9 +8,23 @@ Phases, each of which raises on failure (exit code 1):
      card's power limit as nvidia-smi reports it;
   2. build: compiles the CUDA kernels from tpusph_torch/csrc with nvcc;
   3. kernels against their plain PyTorch versions on the card, at the
-     main path's shapes (262,144 particles, grid init, at step 0 and after
-     20 steps): ranks exact, density rtol 1e-5, force rtol 1e-4 atol 1e-4;
-     prints each kernel's time beside the plain version's;
+     main path's shapes (262,144 particles, grid init, at steps 0, 20 and
+     100): ranks exact; the tiled density (csrc/sph.cu) and the baseline
+     (csrc/sph_baseline.cu) rtol 1e-5, force rtol 1e-4 atol 1e-4, and the
+     largest difference between tiled and baseline (0 when they agree bit
+     for bit). At each state: the times of baseline, tiled, tiled,
+     baseline in turns (device time: 10 calls in one CUDA graph, the
+     median of 11 replays), the plain version's (CUDA events around 10
+     eager calls), for rank also one `torch.searchsorted` call's
+     (library_ms); each kernel's bound, the
+     larger of its bytes (each input read once, each output written once;
+     the starts entries it reads) at 3.35 TB/s and its fp32 operations at
+     67 TFLOP/s (density 9 a candidate, 4 a pair within h and 1 a target;
+     force 9 a candidate and 32 a pair within h and apart; rank 2 a
+     binary-search step); Gpair/s; the baseline's lane efficiency (window
+     rows / 32 x the sum over warps and columns of the warp's longest
+     window) and the tiled kernels' staging overhead (rows staged, from
+     `fused.chunk_walk`, / rows of the union of each block's windows);
   4. parity at N = 4096: one kernel step against the NumPy oracle
      (tests/oracle_numpy.py: density rtol 1e-4, positions atol 1e-5), and
      10 chained kernel steps against 10 plain steps on the CPU,
@@ -55,11 +69,15 @@ Phases, each of which raises on failure (exit code 1):
      d. chunked free mode through the command line, `-n 262144 -m free
         --frames 32 --viz-chunk 8 --click 2:400,300` (bitmap frames, the
         default at this N): 32 PNGs; ms per frame beside phase 7's.
-Each path's kernel launch counts are set to 0 just before it and read just
-after. A wrapper counts where it launches its kernel; inside a CUDA graph
+The probes' bounds are their FMA (2 flops) or operation counts at 67
+TFLOP/s. Each path's kernel launch counts are set to 0 just before it and
+read just after. A wrapper counts where it launches its kernel; inside a CUDA graph
 (phase 8) the launches recorded at capture are what each replay adds
 (`tpusph_torch/engine/graphs.py`). It then prints one JSON line of
-per-kernel results and, last, one JSON line {"ok": true, "device": {...}}.
+per-kernel results (the main path's launches, the launches in one replay
+of the 100-step chain, and for rank, density and force the numbers at step
+20 with each state's under "by_step") and, last, one JSON line {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -68,8 +86,8 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -88,6 +106,11 @@ FREE_CLICK = "2:400,300"  # frame:pixel, the box centre
 CHAIN_STEPS = 100  # steps per replay of the timed fields chain (bench.py's)
 CHAIN_PARITY_STEPS = 20
 CHUNK_FRAMES, VIZ_CHUNK = 32, 8
+KERNEL_STATES = (0, 20, 100)  # steps of 262,144 grid init at which phase 3 checks and times
+TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
+# H100 SXM peaks (NVIDIA's data sheet) for the bounds
+MEM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def require(ok, msg: str) -> None:
@@ -96,12 +119,17 @@ def require(ok, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
+def kernel_name(line: str) -> str:
+    """A kernel's name and integer template arguments from ptxas's line
+    with its mangled name (`<length><name>` then `I...E` for the
+    arguments), e.g. force_tile_kernel<128, 32, 0>; the line if none."""
+    for m in re.finditer(r"(?=(\d{1,2})([a-z]\w*?_kernel)[IE])", line):
+        if int(m.group(1)) == len(m.group(2)):
+            args = re.match(r"I((?:L[ib]\d+E)+)E", line[m.end(2):])
+            if not args:
+                return m.group(2)
+            return m.group(2) + "<" + ", ".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+    return line.strip()
 
 
 def time_ms(fn, reps: int) -> float:
@@ -128,8 +156,186 @@ def canon(pos, *fields):
     return (pos[order],) + tuple(f[order] for f in fields)
 
 
-def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> None:
-    """Phase 8 (see the module docstring)."""
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what binds it: bytes
+    at the memory rate or operations at the fp32 rate."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def window_stats(key, starts, cfg):
+    """(candidates, distinct starts entries a pass reads, the baseline's
+    lane efficiency, {kernel: (rows the tiled kernel stages, rows of its
+    staging blocks' window unions, share of blocks that stage)})."""
+    from tpusph_torch.kernels import fused
+
+    nc = cfg.num_cells
+    live = key < nc
+    offs = torch.tensor(fused.column_offsets(cfg), device=key.device)
+    base = key[live].long()[:, None] + offs
+    lo = (base - 1).clamp(0, nc)
+    hi = torch.maximum((base + 2).clamp(max=nc), lo)
+    entries = int(torch.unique(torch.cat([lo.flatten(), hi.flatten()])).numel())
+    begin, count = fused.windows(key, starts, cfg)
+    n = key.numel()
+    # baseline: a warp runs its longest lane's window in each column
+    warps = torch.nn.functional.pad(count, (0, 0, 0, -n % 32)).view(-1, 32, 9)
+    lane_eff = float(count.sum()) / (32 * float(warps.amax(dim=1).sum()))
+    # tiled: the rows staged against the rows of each (block, column)'s union
+    staging = {}
+    for name, (t, s), stage_min in (
+            ("density", fused.DENSITY_SHAPE, fused.DENSITY_STAGE_MIN),
+            ("force", fused.FORCE_SHAPE, fused.FORCE_STAGE_MIN)):
+        c = torch.nn.functional.pad(count, (0, 0, 0, -n % t)).view(-1, t, 9)
+        b = torch.nn.functional.pad(begin, (0, 0, 0, -n % t)).view(-1, t, 9)
+        e = torch.where(c > 0, b + c, -1)
+        seen = torch.cummax(e, dim=1).values
+        seen = torch.cat([torch.full_like(seen[:, :1], -1), seen[:, :-1]], dim=1)
+        lives = torch.nn.functional.pad(live, (0, -n % t)).view(-1, t).sum(dim=1)
+        staged = (lives > 0) & (c.sum(dim=(1, 2)) >= lives * stage_min)
+        needed = int((e - torch.maximum(b, seen)).clamp(min=0).sum(dim=(1, 2))[staged].sum())
+        walk = fused.chunk_walk(key, starts, cfg, t, s, stage_min)
+        staging[name] = (int(fused.staged_slots(walk[:, 3], walk[:, 4]).sum()), needed,
+                         float(staged.float().mean()))
+    return int(count.sum()), entries, lane_eff, staging
+
+
+def kernel_phase(card: str, dev) -> dict:
+    """Phase 3 (see the module docstring). Returns the kernel rows of the
+    JSON line for rank, density and force."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.core.init import init_state
+    from tpusph_torch.engine.step import build_phase, make_step
+    from tpusph_torch.kernels import fused, qrank
+    from tpusph_torch.physics.kernels import pressure_from_density
+    from tpusph_torch.scripts import graph_ms
+
+    cfg = tuned_config(N_MAIN)
+    nc = cfg.num_cells
+    step = make_step(cfg, "kernels", dev)
+    states = {}
+    st = init_state(cfg, device=dev)
+    for k in range(max(KERNEL_STATES) + 1):
+        if k in KERNEL_STATES:
+            states[k] = st
+        st, _ = step(st)
+    results = {
+        "rank": dict(route="cuda", source="tpusph_torch/csrc/qrank.cu",
+                     replaces="tpusph/pallas/qrank.py:234", max_abs_err=0.0),
+        "density": dict(route="cuda", source="tpusph_torch/csrc/sph.cu",
+                        replaces="tpusph/pallas/fused.py:1200", max_abs_err=0.0,
+                        max_abs_diff_baseline=0.0),
+        "force": dict(route="cuda", source="tpusph_torch/csrc/sph.cu",
+                      replaces="tpusph/pallas/fused.py:1540", max_abs_err=0.0,
+                      max_abs_diff_baseline=0.0),
+    }
+    for r in results.values():
+        r["by_step"] = {}
+    for label, st in states.items():
+        cl = build_phase(st, cfg)
+        key, starts = cl.key_sorted, cl.starts
+        n = key.numel()
+        cells = torch.arange(nc + 2, dtype=torch.int32, device=dev)
+        rk, ovf = qrank.rank_queries(key, cells, nc)
+        rp = qrank.rank_queries_plain(key, cells, nc)
+        torch.testing.assert_close(rk, rp, rtol=0, atol=0)
+        require(ovf == 0, f"rank overflow {ovf}")
+
+        xyz = st.position[cl.perm].T.contiguous()
+        vxyz = st.velocity[cl.perm].T.contiguous()
+        dk = fused.density(*xyz, key, starts, cfg)
+        db = fused.density_baseline(*xyz, key, starts, cfg)
+        dp = fused.density_plain(*xyz, key, starts, cfg)
+        torch.testing.assert_close(dk, dp, rtol=1e-5, atol=0)
+        torch.testing.assert_close(db, dp, rtol=1e-5, atol=0)
+        rho, p = pressure_from_density(dk, cfg)
+        rho = torch.where(cl.valid_sorted, rho, 1.0)
+        p = torch.where(cl.valid_sorted, p, 0.0)
+        fk = fused.force(*xyz, *vxyz, rho, p, key, starts, cfg)
+        fb = fused.force_baseline(*xyz, *vxyz, rho, p, key, starts, cfg)
+        fp = fused.force_plain(*xyz, *vxyz, rho, p, key, starts, cfg)
+        torch.testing.assert_close(fk, fp, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(fb, fp, rtol=1e-4, atol=1e-4)
+        diffs = {}
+        for name, got, base, plain in (("density", dk, db, dp), ("force", fk, fb, fp)):
+            r = results[name]
+            r["max_abs_err"] = max(r["max_abs_err"], float((got - plain).abs().max()))
+            diffs[name] = float((got - base).abs().max())
+            r["max_abs_diff_baseline"] = max(r["max_abs_diff_baseline"], diffs[name])
+            if diffs[name]:
+                worst = int((got - base).abs().flatten().argmax()) % n
+                print(f"step {label}: {name} differs from the baseline by up to "
+                      f"{diffs[name]:.3e} (row {worst}, key {int(key[worst])}; {card})")
+        cand, entries, lane_eff, staging = window_stats(key, starts, cfg)
+        _, within, apart = fused.pair_counts(*xyz, key, starts, cfg)
+        _, count = fused.windows(key, starts, cfg)
+        print(f"step {label}: ranks equal; density max|err| "
+              f"{float((dk - dp).abs().max()):.3e} (max rho {float(dk.max()):.3f}); "
+              f"force max|err| {float((fk - fp).abs().max()):.3e} "
+              f"(max |f| {float(fk.abs().max()):.3f}); max |new - baseline| density "
+              f"{diffs['density']:.3e}, force {diffs['force']:.3e}; widest window "
+              f"{int(count.max())}; max p {float(p.max()):.3f}; {card}")
+        staged = "; ".join(
+            f"{name} (T, S) = {shape}: blocks staged {frac:.4f}, {st_} rows staged / "
+            f"{need} needed = {st_ / max(need, 1):.4f}"
+            for (name, (st_, need, frac)), shape in zip(
+                staging.items(), (fused.DENSITY_SHAPE, fused.FORCE_SHAPE)))
+        print(f"step {label}: candidate pairs {cand}, within h {within}, force pairs "
+              f"{apart}; baseline lane efficiency {lane_eff:.4f}; tiled staging: "
+              f"{staged}; {card}")
+
+        # bounds: each input read once, each output written once
+        nbytes = {
+            "rank": 4 * (n + 2 * (nc + 2)),
+            "density": 4 * (n + entries + 3 * n + n),
+            "force": 4 * (n + entries + 8 * n + 3 * n),
+        }
+        flops = {
+            "rank": 2 * (nc + 2) * math.ceil(math.log2(n + 1)),
+            "density": 9 * cand + 4 * within + int(cl.valid_sorted.sum()),
+            "force": 9 * cand + 32 * apart,
+        }
+        calls = {
+            "density": (lambda: fused.density_baseline(*xyz, key, starts, cfg),
+                        lambda: fused.density(*xyz, key, starts, cfg),
+                        lambda: fused.density_plain(*xyz, key, starts, cfg)),
+            "force": (lambda: fused.force_baseline(*xyz, *vxyz, rho, p, key, starts, cfg),
+                      lambda: fused.force(*xyz, *vxyz, rho, p, key, starts, cfg),
+                      lambda: fused.force_plain(*xyz, *vxyz, rho, p, key, starts, cfg)),
+        }
+        for name, (base, new, plain) in calls.items():
+            turns = [graph_ms(fn) for fn in (base, new, new, base)]
+            row = dict(ms=(turns[1] + turns[2]) / 2, baseline_ms=(turns[0] + turns[3]) / 2,
+                       plain_ms=time_ms(plain, 3), library_ms=None)
+            row["bound_ms"], row["bound_by"] = bound(nbytes[name], flops[name])
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            results[name]["by_step"][label] = row
+            print(f"time {name} at step {label}: baseline, tiled, tiled, baseline "
+                  f"{', '.join(f'{t:.4f}' for t in turns)} ms; plain {row['plain_ms']:.4f} ms; "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes[name]} B, "
+                  f"{flops[name]} flop), share {row['share_of_bound']:.4f}; tiled "
+                  f"{cand / row['ms'] / 1e6:.2f} Gpair/s, baseline "
+                  f"{cand / row['baseline_ms'] / 1e6:.2f} Gpair/s (N={N_MAIN}; {card})")
+        row = dict(ms=graph_ms(lambda: qrank.rank_queries(key, cells, nc)),
+                   plain_ms=time_ms(lambda: qrank.rank_queries_plain(key, cells, nc), 21),
+                   library_ms=graph_ms(lambda: torch.searchsorted(key, cells, out_int32=True)),
+                   baseline_ms=None)
+        row["bound_ms"], row["bound_by"] = bound(nbytes["rank"], flops["rank"])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        results["rank"]["by_step"][label] = row
+        print(f"time rank at step {label}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, torch.searchsorted {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), share "
+              f"{row['share_of_bound']:.4f} (N={N_MAIN}; {card})")
+    for r in results.values():  # the row's own numbers: step 20, as before
+        r.update(r["by_step"][TIMED_STATE])
+        r["at"] = f"{N_MAIN} grid init, step {TIMED_STATE}"
+    return results
+
+
+def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> dict:
+    """Phase 8 (see the module docstring). Returns each kernel's launches
+    in one replay of the 100-step chain."""
     from tpusph_torch import cli
     from tpusph_torch.core.config import default_config, tuned_config
     from tpusph_torch.core.init import init_state
@@ -343,6 +549,7 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
           f"{CHUNK_FRAMES} frames, {chunk_s:.3f} s, {chunk_s / CHUNK_FRAMES * 1e3:.2f} ms "
           f"per frame with set-up and capture, beside {free_ms:.2f} unchunked (phase 7); "
           f"launches {chunk_launches}; {card}")
+    return chain_launches
 
 
 def main() -> int:
@@ -357,11 +564,10 @@ def main() -> int:
     from tpusph_torch.core.init import init_state
     from tpusph_torch.core.io import load_state
     from tpusph_torch.engine.simulator import Simulator
-    from tpusph_torch.engine.step import build_phase, make_step
+    from tpusph_torch.engine.step import make_step
     from tpusph_torch.kernels import fused, probes, qrank
-    from tpusph_torch.physics.kernels import pressure_from_density
     from tpusph_torch.scripts import loop_probe as loop_script
-    from tpusph_torch.scripts import slope, timed, vpu_microbench
+    from tpusph_torch.scripts import card_line, slope, timed, vpu_microbench
     from tpusph_torch.utils import cuda_build
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -379,83 +585,16 @@ def main() -> int:
     cuda_build.library()
     print(f"build: {build_s:.2f} s -> {os.path.relpath(path, REPO)}")
     log = path.with_suffix(".log")
+    kernel = None
     for line in log.read_text().splitlines() if log.exists() else []:
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            kernel = kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {kernel}: {line.split(':', 1)[-1].strip()}")
 
     # ---------------------------------- 3. kernels against plain versions
     cfg = tuned_config(N_MAIN)
-    nc = cfg.num_cells
-    step = make_step(cfg, "kernels", dev)
-    states = {0: init_state(cfg, device=dev)}
-    st = states[0]
-    for _ in range(20):
-        st, _ = step(st)
-    states[20] = st
-
-    results = {
-        "rank": dict(route="cuda", source="tpusph_torch/csrc/qrank.cu",
-                     replaces="tpusph/pallas/qrank.py:234", fn=qrank.rank_queries),
-        "density": dict(route="cuda", source="tpusph_torch/csrc/sph.cu",
-                        replaces="tpusph/pallas/fused.py:1200", fn=fused.density),
-        "force": dict(route="cuda", source="tpusph_torch/csrc/sph.cu",
-                      replaces="tpusph/pallas/fused.py:1540", fn=fused.force),
-    }
-    for r in results.values():
-        r["max_abs_err"] = 0.0
-    for label, st in states.items():
-        cl = build_phase(st, cfg)
-        key, starts = cl.key_sorted, cl.starts
-        cells = torch.arange(nc + 2, dtype=torch.int32, device=dev)
-        rk, ovf = qrank.rank_queries(key, cells, nc)
-        rp = qrank.rank_queries_plain(key, cells, nc)
-        torch.testing.assert_close(rk, rp, rtol=0, atol=0)
-        require(ovf == 0, f"rank overflow {ovf}")
-        results["rank"]["max_abs_err"] = max(
-            results["rank"]["max_abs_err"], float((rk - rp).abs().max()))
-
-        xyz = st.position[cl.perm].T.contiguous()
-        vxyz = st.velocity[cl.perm].T.contiguous()
-        dk = fused.density(*xyz, key, starts, cfg)
-        dp = fused.density_plain(*xyz, key, starts, cfg)
-        torch.testing.assert_close(dk, dp, rtol=1e-5, atol=0)
-        results["density"]["max_abs_err"] = max(
-            results["density"]["max_abs_err"], float((dk - dp).abs().max()))
-
-        rho, p = pressure_from_density(dk, cfg)
-        rho = torch.where(cl.valid_sorted, rho, 1.0)
-        p = torch.where(cl.valid_sorted, p, 0.0)
-        fk = fused.force(*xyz, *vxyz, rho, p, key, starts, cfg)
-        fp = fused.force_plain(*xyz, *vxyz, rho, p, key, starts, cfg)
-        torch.testing.assert_close(fk, fp, rtol=1e-4, atol=1e-4)
-        results["force"]["max_abs_err"] = max(
-            results["force"]["max_abs_err"], float((fk - fp).abs().max()))
-        _, count = fused.windows(key, starts, cfg)
-        print(f"step {label}: ranks equal; density max|err| "
-              f"{float((dk - dp).abs().max()):.3e} (max rho {float(dk.max()):.3f}); "
-              f"force max|err| {float((fk - fp).abs().max()):.3e} "
-              f"(max |f| {float(fk.abs().max()):.3f}); widest window {int(count.max())}; "
-              f"max p {float(p.max()):.3f}")
-
-        if label == 20:  # time at the pile-up state
-            calls = {
-                "rank": (lambda: qrank.rank_queries(key, cells, nc),
-                         lambda: qrank.rank_queries_plain(key, cells, nc)),
-                "density": (lambda: fused.density(*xyz, key, starts, cfg),
-                            lambda: fused.density_plain(*xyz, key, starts, cfg)),
-                "force": (lambda: fused.force(*xyz, *vxyz, rho, p, key, starts, cfg),
-                          lambda: fused.force_plain(*xyz, *vxyz, rho, p, key, starts, cfg)),
-            }
-            for name, (kern, plain) in calls.items():
-                results[name]["ms"] = time_ms(kern, 21)
-                results[name]["plain_ms"] = time_ms(plain, 5)
-                print(f"time {name}: kernel {results[name]['ms']:.4f} ms, plain "
-                      f"{results[name]['plain_ms']:.4f} ms per call (N={N_MAIN}, "
-                      f"step 20; {card})")
-            pairs = int(count.sum())
-            print(f"candidate pairs at step 20: {pairs}; density kernel "
-                  f"{pairs / results['density']['ms'] / 1e6:.2f} Gpair/s, force kernel "
-                  f"{pairs / results['force']['ms'] / 1e6:.2f} Gpair/s ({card})")
+    results = kernel_phase(card, dev)
 
     # ------------------------------------------------- 4. parity at 4096
     cfg4 = default_config(N_PARITY)
@@ -668,14 +807,26 @@ def main() -> int:
         "density_mix": "scripts/vpu_microbench.py:81",
         "loop_probe": "scripts/loop_probe.py:54",
     }
+    # (bytes, flops) of each timed probe call: an FMA is 2 flops; the density
+    # mix does 16 operations a pair-lane and round, the loop probe's V3 13
+    sub = vpu_microbench.SUB
+    probe_work = {
+        "fma_probe": (2 * 4 * sub * 128, 2 * sub * 128 * 8 * fma_r),
+        "density_mix": (4 * (128 * 4 + 8 * 128 + 128 * 128), 16 * 128 * 128 * mix_r),
+        "loop_probe": (2 * (lp_r + 8) + 4 * (64 * 4 + 8 * cap + 64 * 256),
+                       13 * 64 * 256 * lp_r),
+    }
     for name, (at, kern, plain, rounds) in probe_calls.items():
-        results[name] = dict(
+        r = results[name] = dict(
             route="cuda", source="tpusph_torch/csrc/probes.cu", replaces=sources[name],
             max_abs_err=probe_err[name], at=at,
             ms=timed(lambda: kern(rounds), 6) * 1e3, plain_ms=plain_ms(plain, rounds))
-        print(f"time {name} ({at}): kernel {results[name]['ms']:.4f} ms per call, plain "
-              f"{results[name]['plain_ms']:.4f} ms (its slope from {max(1, rounds // 100)} "
-              f"to {4 * max(1, rounds // 100)} rounds, scaled to {rounds}; {card})")
+        r["bound_ms"], r["bound_by"] = bound(*probe_work[name])
+        print(f"time {name} ({at}): kernel {r['ms']:.4f} ms per call, plain "
+              f"{r['plain_ms']:.4f} ms (its slope from {max(1, rounds // 100)} "
+              f"to {4 * max(1, rounds // 100)} rounds, scaled to {rounds}); bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+              f"{r['bound_ms'] / r['ms']:.4f}; {card}")
 
     # ------------------------------------------------------ 7. free mode
     with tempfile.TemporaryDirectory() as tmp:
@@ -713,13 +864,19 @@ def main() -> int:
           f"{free_s:.3f} s, {free_ms:.2f} ms per frame with set-up "
           f"and save ({card})")
 
-    chained_loop(card, kernels, timed_rate, free_ms, dev)
+    replay_launches = chained_loop(card, kernels, timed_rate, free_ms, dev)
 
+    for name, r in results.items():
+        r["launches_per_replay"] = replay_launches.get(name, 0)
+        r.setdefault("baseline_ms", None)
+        r.setdefault("library_ms", None)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
     table = [
-        {"name": name, "route": r["route"], "source": r["source"],
-         "replaces": r["replaces"], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         **({"at": r["at"]} if "at" in r else {})}
+        {"name": name, "launches": launches[name],
+         **{k: r[k] for k in ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms", "baseline_ms",
+                              "share_of_bound", "launches_per_replay", "at")},
+         **{k: r[k] for k in ("max_abs_diff_baseline", "by_step") if k in r}}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": table}))

@@ -69,7 +69,7 @@ def test_grid_init_bit_equal(n):
     cfg_j, cfg_t = jcfg.default_config(n), tcfg.default_config(n)
     assert tinit.lattice_capacity(cfg_t) == jinit.lattice_capacity(cfg_j)
     ref = _jax_arrays(jinit.init_state(cfg_j))
-    got = tstate.state_to_numpy(tinit.init_state(cfg_t))
+    got = tstate.state_to_numpy(tinit.init_state(cfg_t, device="cpu"))
     for f in tstate.FIELDS:
         assert got[f].dtype == ref[f].dtype, f
         np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
@@ -83,9 +83,9 @@ def test_grid_init_rejects_over_capacity():
 
 def test_random_init_seeded_and_in_box():
     cfg = tcfg.default_config(1000)
-    a = tinit.init_state(cfg, random_init=True, seed=3)
-    b = tinit.init_state(cfg, random_init=True, seed=3)
-    c = tinit.init_state(cfg, random_init=True, seed=4)
+    a = tinit.init_state(cfg, random_init=True, seed=3, device="cpu")
+    b = tinit.init_state(cfg, random_init=True, seed=3, device="cpu")
+    c = tinit.init_state(cfg, random_init=True, seed=4, device="cpu")
     assert torch.equal(a.position, b.position)
     assert not torch.equal(a.position, c.position)
     live = a.position[a.valid]
@@ -129,16 +129,26 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
     st = jinit.init_state(cfg, random_init=True, seed=11)
     path = str(tmp_path / "ck.npz")
     jio.save_state(path, st, cfg)
-    got, got_cfg = tio.load_state(path)
+    got, got_cfg = tio.load_state(path, device="cpu")
     assert got_cfg == tcfg.config_from_dict(dataclasses.asdict(cfg))
     ref = _jax_arrays(st)
     for f, a in tstate.state_to_numpy(got).items():
         np.testing.assert_array_equal(a, ref[f], err_msg=f)
 
 
+def test_entry_points_default_to_the_card():
+    """A caller who names no device gets the card; the CPU is asked for."""
+    import inspect
+
+    from tpusph_torch.engine.step import make_step
+
+    for fn in (make_step, tinit.init_state, tio.load_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
 def test_port_checkpoint_loads_in_jax(tmp_path):
     cfg = tcfg.default_config(512)
-    st = tinit.init_state(cfg, random_init=True, seed=2)
+    st = tinit.init_state(cfg, random_init=True, seed=2, device="cpu")
     path = str(tmp_path / "ck.npz")
     tio.save_state(path, st, cfg)
     jst, jc = jio.load_state(path)

@@ -123,7 +123,7 @@ def test_golden_grid_trajectory():
     """tests/golden/traj_grid256_15.npz at test_golden.py's bar."""
     cfg = tdefault(256, chunk_size=256)
     step = make_step(cfg, "kernels", "cpu")
-    st = tinit_state(cfg)
+    st = tinit_state(cfg, device="cpu")
     for _ in range(15):
         st, _ = step(st)
     v = st.valid

@@ -61,7 +61,7 @@ def random_positions(cfg: SimConfig, seed: int = 0) -> torch.Tensor:
 
 
 def init_state(
-    cfg: SimConfig, random_init: bool = False, seed: int = 0, device="cpu"
+    cfg: SimConfig, random_init: bool = False, seed: int = 0, device="cuda"
 ) -> FluidState:
     """Padded initial state for `cfg` on `device`."""
     if random_init:

@@ -21,7 +21,7 @@ def save_state(path: str, state: FluidState, cfg: SimConfig) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def load_state(path: str, device="cpu") -> tuple[FluidState, SimConfig]:
+def load_state(path: str, device="cuda") -> tuple[FluidState, SimConfig]:
     with np.load(path) as data:
         cfg = config_from_dict(json.loads(bytes(data["__config__"]).decode()))
         state = state_from_numpy(data, device)

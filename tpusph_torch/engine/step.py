@@ -315,7 +315,7 @@ BACKENDS = {
 }
 
 
-def make_step(cfg: SimConfig, backend: str = "kernels", device="cpu"):
+def make_step(cfg: SimConfig, backend: str = "kernels", device="cuda"):
     """`state -> (state, aux)` for states on `device`. On a CUDA device the
     kernels are built here, so the first step does not pay for the build."""
     cfg.validate()

@@ -1,15 +1,22 @@
 """Entry points of the rate probes, the counterparts of
-`scripts/vpu_microbench.py` and `scripts/loop_probe.py`:
+`scripts/vpu_microbench.py` and `scripts/loop_probe.py`, and the tile
+sweep and chained turns of the density and force kernels against their
+baseline:
 
     python -m tpusph_torch.scripts.vpu_microbench
     python -m tpusph_torch.scripts.loop_probe [pt] [bl]
+    python -m tpusph_torch.scripts.tile_sweep [N] [step ...]
+    python -m tpusph_torch.scripts.chain_turns [N]
 
-They time the card and need one; each rate is the slope over the round
-count of the min-over-reps time of one call, from CUDA events recorded
-around the launch.
+They time the card and need one; each probe rate is the slope over the
+round count of the min-over-reps time of one call, from CUDA events
+recorded around the launch.
 """
 
 from __future__ import annotations
+
+import statistics
+import subprocess
 
 import torch
 
@@ -19,6 +26,16 @@ def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("the probes time a GPU: torch.cuda is not available")
     return torch.device("cuda", 0)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them (first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
 
 
 def timed(fn, reps: int) -> float:
@@ -36,6 +53,34 @@ def timed(fn, reps: int) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3)
     return best
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 11) -> float:
+    """Device ms of one call of `fn`: `calls` calls captured in one CUDA
+    graph (after a warm-up on a side stream), the median over `reps`
+    replays timed by CUDA events, over `calls`. No host time between the
+    launches, unlike `timed`; `fn` must be capturable (no host sync)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / calls)
+    return statistics.median(samples)
 
 
 def slope(t_lo: float, t_hi: float, rounds_lo: int, rounds_hi: int) -> float:

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels in `tpusph_torch/csrc/`.
 
-All `.cu` files are compiled by `nvcc` for sm_90a into one shared library
-with a plain C interface, loaded with ctypes. The build runs at the first
+Each `.cu` file is compiled by its own `nvcc` for sm_90a, all of them at
+once, and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. The build runs at the first
 call that needs a kernel, never at import, and lands in
 `build/tpusph_torch/` at the repository root under a name keyed by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpusph_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 P = ctypes.c_void_p
@@ -38,11 +39,15 @@ F = ctypes.c_float
 SIGNATURES = {
     # key_sorted, n, queries, nq, num_cells, ranks, stream
     "tpusph_qrank": [P, I, P, I, I, P, P],
-    # x, y, z, key, starts, n, C, num_cells, h2, scale, rho, stream
-    "tpusph_density": [P, P, P, P, P, I, I, I, F, F, P, P],
-    # x, y, z, vx, vy, vz, rho, p, key, starts, n, C, num_cells,
-    # h, h2, eps, mass, vk, mu, f (3·n field-major), stream
-    "tpusph_force": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
+    # x, y, z, key, starts, n, C, num_cells, h2, scale, rho, tile, chunk,
+    # stage_min, stream
+    "tpusph_density": [P, P, P, P, P, I, I, I, F, F, P, I, I, I, P],
+    # x, y, z, vx, vy, vz, rho, p, key, starts, n, C, num_cells, h, h2, eps,
+    # mass, vk, mu, f (3·n field-major), tile, chunk, exact, stage_min, stream
+    "tpusph_force": [P] * 10 + [I, I, I] + [F] * 6 + [P, I, I, I, I, P],
+    # the first design (sph_baseline.cu): as above without tile .. stage_min
+    "tpusph_density_baseline": [P, P, P, P, P, I, I, I, F, F, P, P],
+    "tpusph_force_baseline": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
     # x, n, streams, rounds, bf16, out, stream
     "tpusph_fma_probe": [P, I, I, I, I, P, P],
     # t, c, pt, rounds, bf16, out, stream
@@ -81,19 +86,30 @@ def build() -> tuple[Path, float]:
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # one nvcc per source, all started together; then one link
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmp, src.stem + ".o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = [proc.communicate()[0] for _, proc in jobs]  # waits for every job
+        for (cmd, proc), out in zip(jobs, log):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        # link to a private name, then rename: concurrent builders never
+        # load a half-written library
+        lib = os.path.join(tmp, path.name)
+        objects = [c[c.index("-o") + 1] for c, _ in jobs]
+        cmd = [nvcc, "-shared", "-o", lib, *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        path.with_suffix(".log").write_text("".join(log) + proc.stdout + proc.stderr)
+        os.replace(lib, path)
     return path, time.perf_counter() - t0
 
 
