@@ -23,8 +23,9 @@ Phases, each of which raises on failure (exit code 1):
      force 9 a candidate and 32 a pair within h and apart; rank 2 a
      binary-search step); Gpair/s; the baseline's lane efficiency (window
      rows / 32 x the sum over warps and columns of the warp's longest
-     window) and the tiled kernels' staging overhead (rows staged, from
-     `fused.chunk_walk`, / rows of the union of each block's windows);
+     window) and the tiled density's staging overhead (rows staged, from
+     `fused.chunk_walk`, / rows of the union of each staging block's
+     windows; the tiled force stages nothing);
   4. parity at N = 4096: one kernel step against the NumPy oracle
      (tests/oracle_numpy.py: density rtol 1e-4, positions atol 1e-5), and
      10 chained kernel steps against 10 plain steps on the CPU,
@@ -122,7 +123,7 @@ def require(ok, msg: str) -> None:
 def kernel_name(line: str) -> str:
     """A kernel's name and integer template arguments from ptxas's line
     with its mangled name (`<length><name>` then `I...E` for the
-    arguments), e.g. force_tile_kernel<128, 32, 0>; the line if none."""
+    arguments), e.g. fma_f32_kernel<8>; the line if none."""
     for m in re.finditer(r"(?=(\d{1,2})([a-z]\w*?_kernel)[IE])", line):
         if int(m.group(1)) == len(m.group(2)):
             args = re.match(r"I((?:L[ib]\d+E)+)E", line[m.end(2):])
@@ -165,8 +166,8 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 def window_stats(key, starts, cfg):
     """(candidates, distinct starts entries a pass reads, the baseline's
-    lane efficiency, {kernel: (rows the tiled kernel stages, rows of its
-    staging blocks' window unions, share of blocks that stage)})."""
+    lane efficiency, (rows the tiled density stages, rows of its staging
+    blocks' window unions, share of blocks that stage))."""
     from tpusph_torch.kernels import fused
 
     nc = cfg.num_cells
@@ -181,22 +182,20 @@ def window_stats(key, starts, cfg):
     # baseline: a warp runs its longest lane's window in each column
     warps = torch.nn.functional.pad(count, (0, 0, 0, -n % 32)).view(-1, 32, 9)
     lane_eff = float(count.sum()) / (32 * float(warps.amax(dim=1).sum()))
-    # tiled: the rows staged against the rows of each (block, column)'s union
-    staging = {}
-    for name, (t, s), stage_min in (
-            ("density", fused.DENSITY_SHAPE, fused.DENSITY_STAGE_MIN),
-            ("force", fused.FORCE_SHAPE, fused.FORCE_STAGE_MIN)):
-        c = torch.nn.functional.pad(count, (0, 0, 0, -n % t)).view(-1, t, 9)
-        b = torch.nn.functional.pad(begin, (0, 0, 0, -n % t)).view(-1, t, 9)
-        e = torch.where(c > 0, b + c, -1)
-        seen = torch.cummax(e, dim=1).values
-        seen = torch.cat([torch.full_like(seen[:, :1], -1), seen[:, :-1]], dim=1)
-        lives = torch.nn.functional.pad(live, (0, -n % t)).view(-1, t).sum(dim=1)
-        staged = (lives > 0) & (c.sum(dim=(1, 2)) >= lives * stage_min)
-        needed = int((e - torch.maximum(b, seen)).clamp(min=0).sum(dim=(1, 2))[staged].sum())
-        walk = fused.chunk_walk(key, starts, cfg, t, s, stage_min)
-        staging[name] = (int(fused.staged_slots(walk[:, 3], walk[:, 4]).sum()), needed,
-                         float(staged.float().mean()))
+    # tiled density: the rows staged against the rows of each (block,
+    # column)'s union
+    t = fused.DENSITY_TILE
+    c = torch.nn.functional.pad(count, (0, 0, 0, -n % t)).view(-1, t, 9)
+    b = torch.nn.functional.pad(begin, (0, 0, 0, -n % t)).view(-1, t, 9)
+    e = torch.where(c > 0, b + c, -1)
+    seen = torch.cummax(e, dim=1).values
+    seen = torch.cat([torch.full_like(seen[:, :1], -1), seen[:, :-1]], dim=1)
+    lives = torch.nn.functional.pad(live, (0, -n % t)).view(-1, t).sum(dim=1)
+    staged = (lives > 0) & (c.sum(dim=(1, 2)) >= lives * fused.DENSITY_STAGE_MIN)
+    needed = int((e - torch.maximum(b, seen)).clamp(min=0).sum(dim=(1, 2))[staged].sum())
+    walk = fused.chunk_walk(key, starts, cfg, stage_min=fused.DENSITY_STAGE_MIN)
+    staging = (int(fused.staged_slots(walk[:, 3], walk[:, 4]).sum()), needed,
+               float(staged.float().mean()))
     return int(count.sum()), entries, lane_eff, staging
 
 
@@ -240,6 +239,8 @@ def kernel_phase(card: str, dev) -> dict:
         rp = qrank.rank_queries_plain(key, cells, nc)
         torch.testing.assert_close(rk, rp, rtol=0, atol=0)
         require(ovf == 0, f"rank overflow {ovf}")
+        results["rank"]["max_abs_err"] = max(results["rank"]["max_abs_err"],
+                                             float((rk - rp).abs().max()))
 
         xyz = st.position[cl.perm].T.contiguous()
         vxyz = st.velocity[cl.perm].T.contiguous()
@@ -275,14 +276,12 @@ def kernel_phase(card: str, dev) -> dict:
               f"(max |f| {float(fk.abs().max()):.3f}); max |new - baseline| density "
               f"{diffs['density']:.3e}, force {diffs['force']:.3e}; widest window "
               f"{int(count.max())}; max p {float(p.max()):.3f}; {card}")
-        staged = "; ".join(
-            f"{name} (T, S) = {shape}: blocks staged {frac:.4f}, {st_} rows staged / "
-            f"{need} needed = {st_ / max(need, 1):.4f}"
-            for (name, (st_, need, frac)), shape in zip(
-                staging.items(), (fused.DENSITY_SHAPE, fused.FORCE_SHAPE)))
+        rows, need, frac = staging
         print(f"step {label}: candidate pairs {cand}, within h {within}, force pairs "
-              f"{apart}; baseline lane efficiency {lane_eff:.4f}; tiled staging: "
-              f"{staged}; {card}")
+              f"{apart}; baseline lane efficiency {lane_eff:.4f}; tiled density "
+              f"(T {fused.DENSITY_TILE}, S {fused.DENSITY_CHUNK}, staging from "
+              f"{fused.DENSITY_STAGE_MIN}): blocks staged {frac:.4f}, {rows} rows staged / "
+              f"{need} needed = {rows / max(need, 1):.4f}; tiled force stages nothing; {card}")
 
         # bounds: each input read once, each output written once
         nbytes = {

@@ -1,5 +1,5 @@
-"""`fused.chunk_walk`, the plain model of the tiled density and force
-kernels' sweep (csrc/sph.cu), on the CPU: the chunks each block of T
+"""`fused.chunk_walk`, the plain model of the tiled density kernel's sweep
+(csrc/sph.cu), on the CPU: the chunks each block of T
 targets stages cover every target's 9 windows once, in ascending rows and
 in the column order of `column_offsets`, every chunk starts at a needed
 row, and every stage fits the ring (at most S slots, rows aligned to 4
@@ -161,10 +161,16 @@ def test_walk_of_sentinel_rows_is_empty():
     assert fused.chunk_walk(key, starts, cfg, 128, 512).shape == (0, 5)
 
 
-def test_wrappers_refuse_unbuilt_tile_shapes():
-    cfg, key, starts = _case("grid_ragged")
-    x = torch.zeros(key.shape[0])
-    with pytest.raises(ValueError):
-        fused.density(x, x, x, key, starts, cfg, shape=(96, 256))
-    with pytest.raises(ValueError):
-        fused.force(x, x, x, x, x, x, x + 1, x, key, starts, cfg, shape=(256, 128))
+def test_kernel_shape_stages_the_blob_and_not_the_grid():
+    """At the density kernel's own shape and threshold the dense blob's
+    blocks stage and the grid's read device memory: the GPU tests reach
+    both of the kernel's paths through these inputs."""
+    walk = {}
+    for kind in ("dense", "grid", "grid_ragged"):
+        cfg, key, starts = _case(kind)
+        walk[kind] = fused.chunk_walk(key, starts, cfg,
+                                      stage_min=fused.DENSITY_STAGE_MIN).numpy()
+    assert len(np.unique(walk["dense"][:, 0])) == -(-2048 // fused.DENSITY_TILE)
+    assert walk["grid"].shape == walk["grid_ragged"].shape == (0, 5)
+    cfg, key, starts = _case("dense")
+    np.testing.assert_array_equal(walk["dense"], fused.chunk_walk(key, starts, cfg).numpy())

@@ -8,10 +8,9 @@ without them. On a GPU machine, from the repository root:
 not need.) Bars: ranks exact; density rtol 1e-5; force rtol 1e-4 with
 atol 1e-4, and on the dense blob an atol at the float32 floor of its sums
 (see the test). The kernels sum in another order than the plain versions,
-and nvcc contracts a*b+c into FMA. The tiled density kernel, and the
-tiled force kernel with `exact`, equal the baseline kernels (the first
-design) bit for bit; the default tiled force (per-row 1/(2ρ), rsqrt) is
-held at the force bar. The rate probes at 64 rounds: f32 FMA,
+and nvcc contracts a*b+c into FMA. The tiled density kernel equals the
+baseline kernel (the first design) bit for bit; the tiled force (one
+1/(2ρ) a pair, rsqrt) is held at the force bar. The rate probes at 64 rounds: f32 FMA,
 f32 density mix and the loop probe rtol 1e-5 (FMA against separately
 rounded ops; rsqrtf); bf16 FMA and bf16 density mix bit-equal. At the
 entry points' round counts: the f32 FMA bit-equal on inputs where a fused
@@ -44,12 +43,13 @@ def dev():
 def _sorted_inputs(kind, dev):
     """Sorted rows, keys and starts of a grid or random state after 5
     steps; of grid init ("plane": tiles straddle z-planes); of a grid at
-    1000 rows ("ragged": no multiple of any tile); or of a dense blob with
-    random velocities (pressure live, windows wider than a chunk)."""
-    n = 1000 if kind == "ragged" else 4096
-    cfg = default_config(n, chunk_size=n if kind == "ragged" else 1024)
+    1000 rows ("ragged": no multiple of a tile); or of a dense blob with
+    random velocities (pressure live, windows wider than a chunk), also at
+    1001 rows ("blob_odd": y and z of the [3, n] fields off 16 bytes)."""
+    n = {"ragged": 1000, "blob_odd": 1001}.get(kind, 4096)
+    cfg = default_config(n, chunk_size=n if n < 4096 else 1024)
     st = init_state(cfg, random_init=(kind == "random"), seed=3, device=dev)
-    if kind == "blob":
+    if kind.startswith("blob"):
         rng = np.random.default_rng(0)
         st.position[:n] = torch.from_numpy(rng.uniform(4.0, 4.35, (n, 3)).astype(np.float32)).to(dev)
         st.velocity[:n] = torch.from_numpy(rng.normal(0, 0.5, (n, 3)).astype(np.float32)).to(dev)
@@ -105,46 +105,43 @@ def test_density_and_force_kernels_equal_plain(dev, kind):
 def _force_atol(kind, cfg, cl, ref):
     """1e-4, or on the dense blob the float32 floor of its sums (see
     test_density_and_force_kernels_equal_plain)."""
-    if kind != "blob":
+    if not kind.startswith("blob"):
         return 1e-4
     _, count = fused.windows(cl.key_sorted, cl.starts, cfg)
     k = float(count.sum(dim=1).max())
     return k**0.5 * torch.finfo(torch.float32).eps * float(ref.abs().max())
 
 
-SHAPES = [  # (density shape, force shape): (targets a block, rows a stage)
-    (fused.DENSITY_SHAPE, fused.FORCE_SHAPE),
-    ((64, 256), (64, 256)),
-    ((256, 1024), (256, 256)),
-    ((128, 256), (128, 512)),
-]
-
-
-@pytest.mark.parametrize("dshape,fshape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("kind", ["grid", "random", "blob", "ragged", "plane"])
-def test_tiled_kernels_equal_plain_and_baseline(dev, kind, dshape, fshape):
+@pytest.mark.parametrize("kind", ["grid", "random", "blob", "blob_odd", "ragged", "plane"])
+def test_tiled_kernels_equal_plain_and_baseline(dev, kind):
     """The tiled kernels (csrc/sph.cu) against the plain versions at their
-    bars; the density, and the force with `exact`, against the baseline
-    (csrc/sph_baseline.cu) bit for bit, whether blocks stage or read device
-    memory: per target both add the same pairs in the same order with the
-    same expressions."""
+    bars, and the density against the baseline (csrc/sph_baseline.cu) bit
+    for bit: per target both add the same pairs in the same order with the
+    same expressions. The blobs' density blocks stage their windows (a
+    column takes several chunks; at 1001 rows by 4-byte copies), the grids'
+    read device memory; the force always reads device memory."""
     cfg, cl, xyz, vxyz = _sorted_inputs(kind, dev)
     key, starts = cl.key_sorted, cl.starts
-    if kind == "blob":  # a column takes several chunks
-        walk = fused.chunk_walk(key, starts, cfg, *fshape)
+    walk = fused.chunk_walk(key, starts, cfg, stage_min=fused.DENSITY_STAGE_MIN)
+    if kind.startswith("blob"):
         assert int(torch.unique(walk[:, 0] * 9 + walk[:, 2], return_counts=True)[1].max()) > 1
-    if kind == "ragged":
-        assert key.numel() % dshape[0] != 0 and key.numel() % fshape[0] != 0
+    if kind in ("grid", "ragged", "plane"):
+        assert walk.numel() == 0
+    if kind in ("ragged", "blob_odd"):
+        assert key.numel() % fused.DENSITY_TILE != 0
+    if kind == "blob_odd":
+        assert xyz[1].data_ptr() % 16 != 0
     if kind == "plane":
         c2 = cfg.num_cells_per_dim**2
         k = key[: key.numel() // 128 * 128].view(-1, 128)
         assert bool((k[:, 0] // c2 != k[:, -1] // c2).any())  # a tile straddles a z-plane
     before = (fused.density.launches, fused.density_baseline.launches)
     base = fused.density_baseline(*xyz, key, starts, cfg)
-    raw = fused.density(*xyz, key, starts, cfg, shape=dshape)
+    raw = fused.density(*xyz, key, starts, cfg)
     assert (fused.density.launches, fused.density_baseline.launches) == (
         before[0] + 1, before[1] + 1)
     torch.testing.assert_close(raw, fused.density_plain(*xyz, key, starts, cfg), rtol=1e-5, atol=0)
+    assert torch.equal(raw, base)
     assert torch.all(raw[~cl.valid_sorted] == 0)
     rho, p = pressure_from_density(raw, cfg)
     rho = torch.where(cl.valid_sorted, rho, 1.0)
@@ -152,33 +149,24 @@ def test_tiled_kernels_equal_plain_and_baseline(dev, kind, dshape, fshape):
     args = (*xyz, *vxyz, rho, p, key, starts, cfg)
     ref = fused.force_plain(*args)
     atol = _force_atol(kind, cfg, cl, ref)
-    fast = {}
-    # every block stages, or none does (each reads device memory)
-    for stage_min in (0, 1 << 30):
-        raw = fused.density(*xyz, key, starts, cfg, shape=dshape, stage_min=stage_min)
-        assert torch.equal(raw, base)
-        for exact in (False, True):
-            f = fused.force(*args, shape=fshape, exact=exact, stage_min=stage_min)
-            torch.testing.assert_close(f, ref, rtol=1e-4, atol=atol)
-            assert torch.all(f[:, ~cl.valid_sorted] == 0)
-        assert torch.equal(f, fused.force_baseline(*args))
-        fast[stage_min] = fused.force(*args, shape=fshape, stage_min=stage_min)
-    assert torch.equal(fast[0], fast[1 << 30])  # the per-row coefficients repeat per pair
+    f = fused.force(*args)
+    torch.testing.assert_close(f, ref, rtol=1e-4, atol=atol)
+    torch.testing.assert_close(fused.force_baseline(*args), ref, rtol=1e-4, atol=atol)
+    assert torch.all(f[:, ~cl.valid_sorted] == 0)
 
 
-def test_tiled_kernels_refuse_what_they_do_not_take(dev):
-    """A shape they are not built for, and a field off a 16-byte boundary
-    (the kernels copy 4 rows at a time)."""
-    cfg, cl, xyz, _ = _sorted_inputs("grid", dev)
-    with pytest.raises(ValueError):
-        fused.density(*xyz, cl.key_sorted, cl.starts, cfg, shape=(256, 128))
+def test_tiled_density_takes_fields_off_16_bytes(dev):
+    """The dense blob at 4096 rows, whose blocks stage, with x one float
+    past a 16-byte boundary: the stages fill by 4-byte copies, and the sums
+    equal the baseline's and the aligned launch's bit for bit."""
+    cfg, cl, xyz, _ = _sorted_inputs("blob", dev)
     shifted = torch.empty(xyz.shape[1] + 1, device=dev)[1:]
     shifted.copy_(xyz[0])
-    with pytest.raises(ValueError):
-        fused.density(shifted, xyz[1], xyz[2], cl.key_sorted, cl.starts, cfg)
-    torch.testing.assert_close(
-        fused.density_baseline(shifted, xyz[1], xyz[2], cl.key_sorted, cl.starts, cfg),
-        fused.density(*xyz, cl.key_sorted, cl.starts, cfg), rtol=0, atol=0)
+    assert shifted.data_ptr() % 16 != 0
+    got = fused.density(shifted, xyz[1], xyz[2], cl.key_sorted, cl.starts, cfg)
+    assert torch.equal(got, fused.density(*xyz, cl.key_sorted, cl.starts, cfg))
+    assert torch.equal(
+        got, fused.density_baseline(shifted, xyz[1], xyz[2], cl.key_sorted, cl.starts, cfg))
 
 
 def test_kernels_repeat_bit_for_bit(dev):

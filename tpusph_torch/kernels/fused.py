@@ -14,13 +14,14 @@ key mask accepts, so no mask is needed. The JAX package's window prep
 (`supertile_columns` and its TPU tables) has no counterpart: the kernels
 read the starts table directly.
 
-The kernels give a block of `tile` consecutive targets one ascending sweep
-per column over the union of its windows, staged through shared memory in
-chunks of at most `chunk` rows; `chunk_walk` is that sweep in plain
-PyTorch. `density_baseline` and `force_baseline` launch the first design
-(`csrc/sph_baseline.cu`, one thread per target gathering from device
-memory), kept to be timed beside the tiled kernels; the engine never calls
-them.
+The kernels give a block of `DENSITY_TILE` consecutive targets its 9
+windows at once. A density block whose targets are dense sweeps the union
+of its windows, one ascending sweep per column, staged through shared
+memory in chunks of at most `DENSITY_CHUNK` rows; `chunk_walk` is that
+sweep in plain PyTorch. `density_baseline` and `force_baseline` launch the
+first design (`csrc/sph_baseline.cu`, one thread per target gathering
+from device memory), kept to be timed beside the tiled kernels; the engine
+never calls them.
 
 The plain versions vectorise that walk as a padded gather, [B, 9, W] per
 chunk of B = cfg.chunk_size targets, W the largest window count (read
@@ -35,23 +36,15 @@ import torch
 from tpusph_torch.core.config import SimConfig, f32
 from tpusph_torch.kernels.launch import check_tensor, on_cpu, stream_of
 
-# The (tile, chunk) shapes the kernels are built for (csrc/sph.cu
-# TPUSPH_TILE_SHAPES): `tile` targets a block, stages of `chunk` rows.
-TILE_SHAPES = ((128, 32),) + tuple((t, s) for t in (64, 128, 256) for s in (256, 512, 1024))
-PIECES = 16  # chunks a stage holds (csrc/sph.cu kPieces)
-# A block stages its windows when its live targets have at least
-# `stage_min` candidates each on average; a sparser block reads its rows
-# straight from device memory, whose loads hit L1 (neighbouring targets
-# share most of their windows). The defaults are the fastest mean over
-# steps 0, 20, 50 and 100 of 262,144 grid init on an H100
-# (`python -m tpusph_torch.scripts.tile_sweep`, PERF.md): the density
-# stages from 96 candidates a target; the force is fastest reading device
-# memory at every state measured, and the smaller its ring the faster
-# (shared memory comes out of the same 256 KB as that L1), so it never
-# stages by default and keeps the smallest ring.
-NEVER = 1 << 30
-DENSITY_SHAPE, DENSITY_STAGE_MIN = (128, 1024), 96
-FORCE_SHAPE, FORCE_STAGE_MIN = (128, 32), NEVER
+# The density kernel's shape (csrc/sph.cu kTile, kChunk, kStageMin,
+# kPieces): blocks of 128 targets; stages of 1024 row slots in at most 16
+# chunks; a block stages when its live targets average at least 96
+# candidates, else it reads device memory, whose loads hit L1 (neighbouring
+# targets share most of their windows). The fastest mean over steps 0, 20,
+# 50 and 100 of 262,144 grid init on an H100 (PERF.md). The force
+# kernel takes blocks of 128 targets and never stages.
+DENSITY_TILE, DENSITY_CHUNK, DENSITY_STAGE_MIN = 128, 1024, 96
+PIECES = 16
 
 
 def column_offsets(cfg: SimConfig) -> list[int]:
@@ -111,11 +104,11 @@ def staged_slots(start, stop):
     return ((stop + 3) & ~3) - (start & ~3)
 
 
-def chunk_walk(key_sorted, starts, cfg: SimConfig, tile: int, chunk: int,
-               stage_min: int = 0) -> torch.Tensor:
-    """The kernels' sweep: int64[m, 5] rows (block, stage, column, start,
-    stop), the chunks each block of `tile` targets stages, in the order it
-    stages them; a block's stages count from 0 and hold at most `chunk`
+def chunk_walk(key_sorted, starts, cfg: SimConfig, tile: int = DENSITY_TILE,
+               chunk: int = DENSITY_CHUNK, stage_min: int = 0) -> torch.Tensor:
+    """The density kernel's sweep: int64[m, 5] rows (block, stage, column,
+    start, stop), the chunks each block of `tile` targets stages, in the
+    order it stages them; a block's stages count from 0 and hold at most `chunk`
     slots (`staged_slots`) in at most PIECES chunks.
 
     Per column (in `column_offsets` order), a block's first chunk starts at
@@ -202,30 +195,11 @@ def density_plain(x, y, z, key_sorted, starts, cfg: SimConfig) -> torch.Tensor:
     return f32(f32(cfg.mass) * f32(cfg.d_kernel_coeff)) * acc
 
 
-def _check_shape(shape, shapes) -> None:
-    if tuple(shape) not in shapes:
-        raise ValueError(f"(tile, chunk) must be one of {shapes}, got {tuple(shape)}")
-
-
-def _check_aligned(fields: dict, n: int) -> None:
-    """The tiled kernels stage x, y, z 16 bytes (4 rows) at a time: those
-    fields must start on 16 bytes and n be a multiple of 4 (padded counts
-    are)."""
-    if n % 4:
-        raise ValueError(f"the tiled kernels need a multiple of 4 rows, got {n}")
-    for name, t in fields.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary for the tiled kernels")
-
-
-def _launch_density(entry, shape, x, y, z, key_sorted, starts, cfg: SimConfig):
+def _launch_density(entry, x, y, z, key_sorted, starts, cfg: SimConfig):
     dev, n = _check_sorted_inputs(dict(x=x, y=y, z=z), key_sorted, starts, cfg)
     if on_cpu(dev):
         return density_plain(x, y, z, key_sorted, starts, cfg)
     from tpusph_torch.utils import cuda_build
-
-    if shape:
-        _check_aligned(dict(x=x, y=y, z=z), n)
 
     rho = torch.empty_like(x)
     with torch.cuda.device(dev):
@@ -233,21 +207,17 @@ def _launch_density(entry, shape, x, y, z, key_sorted, starts, cfg: SimConfig):
             x.data_ptr(), y.data_ptr(), z.data_ptr(), key_sorted.data_ptr(),
             starts.data_ptr(), n, cfg.num_cells_per_dim, cfg.num_cells,
             f32(cfg.h2), f32(f32(cfg.mass) * f32(cfg.d_kernel_coeff)),
-            rho.data_ptr(), *shape, stream_of(dev),
+            rho.data_ptr(), stream_of(dev),
         )
     cuda_build.check(err, entry)
     return rho
 
 
-def density(x, y, z, key_sorted, starts, cfg: SimConfig, *, shape=DENSITY_SHAPE,
-            stage_min=DENSITY_STAGE_MIN):
+def density(x, y, z, key_sorted, starts, cfg: SimConfig):
     """Raw density of each sorted target (see `density_plain`). Launches
-    `tpusph_density` for CUDA tensors: blocks of `shape[0]` targets,
-    stages of `shape[1]` rows, one of TILE_SHAPES; blocks stage from
-    `stage_min` candidates a target."""
-    _check_shape(shape, TILE_SHAPES)
-    rho = _launch_density("tpusph_density", (*shape, stage_min), x, y, z, key_sorted, starts,
-                          cfg)
+    `tpusph_density` for CUDA tensors: blocks of DENSITY_TILE targets, which
+    stage their windows from DENSITY_STAGE_MIN candidates a target."""
+    rho = _launch_density("tpusph_density", x, y, z, key_sorted, starts, cfg)
     if rho.is_cuda:
         density.launches += 1
     return rho
@@ -258,7 +228,7 @@ density.launches = 0
 
 def density_baseline(x, y, z, key_sorted, starts, cfg: SimConfig):
     """`density` on the first design's kernel, `tpusph_density_baseline`."""
-    rho = _launch_density("tpusph_density_baseline", (), x, y, z, key_sorted, starts, cfg)
+    rho = _launch_density("tpusph_density_baseline", x, y, z, key_sorted, starts, cfg)
     if rho.is_cuda:
         density_baseline.launches += 1
     return rho
@@ -302,14 +272,11 @@ def force_plain(
     return out
 
 
-def _launch_force(entry, shape, fields, key_sorted, starts, cfg: SimConfig):
+def _launch_force(entry, fields, key_sorted, starts, cfg: SimConfig):
     dev, n = _check_sorted_inputs(fields, key_sorted, starts, cfg)
     if on_cpu(dev):
         return force_plain(*fields.values(), key_sorted, starts, cfg)
     from tpusph_torch.utils import cuda_build
-
-    if shape:
-        _check_aligned({k: fields[k] for k in ("x", "y", "z")}, n)
 
     f = fields["x"].new_empty((3, n))
     with torch.cuda.device(dev):
@@ -317,26 +284,20 @@ def _launch_force(entry, shape, fields, key_sorted, starts, cfg: SimConfig):
             *(t.data_ptr() for t in fields.values()),
             key_sorted.data_ptr(), starts.data_ptr(), n, cfg.num_cells_per_dim,
             cfg.num_cells, f32(cfg.h), f32(cfg.h2), f32(cfg.eps), f32(cfg.mass),
-            f32(cfg.v_kernel_coeff), f32(cfg.viscosity), f.data_ptr(), *shape,
-            stream_of(dev),
+            f32(cfg.v_kernel_coeff), f32(cfg.viscosity), f.data_ptr(), stream_of(dev),
         )
     cuda_build.check(err, entry)
     return f
 
 
-def force(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig, *,
-          shape=FORCE_SHAPE, exact=False, stage_min=FORCE_STAGE_MIN) -> torch.Tensor:
+def force(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig) -> torch.Tensor:
     """Force on each sorted target, f32[3, n] (see `force_plain`). Launches
-    `tpusph_force` for CUDA tensors: blocks of `shape[0]` targets, stages
-    of `shape[1]` rows, one of TILE_SHAPES; blocks stage from `stage_min`
-    candidates a target. `exact` takes the baseline's three divides and
-    sqrt a pair, whose sums equal `force_baseline`'s bit for bit; by
-    default a pair within h takes 1/(2ρ_j) once (one divide) and r from
-    rsqrt, within a few ulps."""
-    _check_shape(shape, TILE_SHAPES)
+    `tpusph_force` for CUDA tensors: blocks of 128 targets reading device
+    memory; a pair within h takes 1/(2ρ_j) once (one divide where
+    `force_baseline` takes three) and r from rsqrt, within a few ulps of
+    the baseline's sums."""
     fields = dict(x=x, y=y, z=z, vx=vx, vy=vy, vz=vz, rho=rho, p=p)
-    f = _launch_force("tpusph_force", (*shape, int(exact), stage_min), fields, key_sorted,
-                      starts, cfg)
+    f = _launch_force("tpusph_force", fields, key_sorted, starts, cfg)
     if f.is_cuda:
         force.launches += 1
     return f
@@ -348,7 +309,7 @@ force.launches = 0
 def force_baseline(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig):
     """`force` on the first design's kernel, `tpusph_force_baseline`."""
     fields = dict(x=x, y=y, z=z, vx=vx, vy=vy, vz=vz, rho=rho, p=p)
-    f = _launch_force("tpusph_force_baseline", (), fields, key_sorted, starts, cfg)
+    f = _launch_force("tpusph_force_baseline", fields, key_sorted, starts, cfg)
     if f.is_cuda:
         force_baseline.launches += 1
     return f

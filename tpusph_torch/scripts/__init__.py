@@ -1,11 +1,9 @@
 """Entry points of the rate probes, the counterparts of
-`scripts/vpu_microbench.py` and `scripts/loop_probe.py`, and the tile
-sweep and chained turns of the density and force kernels against their
-baseline:
+`scripts/vpu_microbench.py` and `scripts/loop_probe.py`, and the chained
+loop on the density and force kernels and on their baseline, in turns:
 
     python -m tpusph_torch.scripts.vpu_microbench
     python -m tpusph_torch.scripts.loop_probe [pt] [bl]
-    python -m tpusph_torch.scripts.tile_sweep [N] [step ...]
     python -m tpusph_torch.scripts.chain_turns [N]
 
 They time the card and need one; each probe rate is the slope over the

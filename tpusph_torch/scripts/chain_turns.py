@@ -5,9 +5,8 @@ tiled ones, in turns on one card:
     python -m tpusph_torch.scripts.chain_turns [N]
 
 Variants, run in the order given and then in reverse: `baseline` (the
-first design, `fused.density_baseline` / `force_baseline`), `tiled` (the
-wrappers' defaults) and `density direct` (the defaults, with no density
-block staging). Each variant captures its own chain; its timesteps/s are
+first design, `fused.density_baseline` / `force_baseline`) and `tiled`
+(`fused.density` / `force`, what the engine launches). Each variant captures its own chain; its timesteps/s are
 100 over the median wall time of 5 replays from grid init up to a
 synchronize, and its device time by kernel comes from one profiled
 replay. Prints one line per run with the card's name and power limit.
@@ -33,17 +32,10 @@ from tpusph_torch.scripts import card_line, cuda_device
 STEPS = 100
 
 
-def use(variant: str) -> None:
-    """Point the step at the variant's density and force kernels."""
-    tiled = (fused.density, fused.force)
-    kw = dict(fused.density.__kwdefaults__)
-    if variant == "baseline":
-        step_module.density, step_module.force = fused.density_baseline, fused.force_baseline
-        return
-    if variant == "density direct":
-        kw["stage_min"] = fused.NEVER
-    step_module.density = lambda *a: tiled[0](*a, **kw)
-    step_module.force = tiled[1]
+VARIANTS = {
+    "baseline": (fused.density_baseline, fused.force_baseline),
+    "tiled": (fused.density, fused.force),
+}
 
 
 def main(argv=None) -> dict:
@@ -54,11 +46,11 @@ def main(argv=None) -> dict:
     cfg = tuned_config(n)
     fs0 = fields_from_state(init_state(cfg, device=dev))
     saved = (step_module.density, step_module.force)
-    variants = ["baseline", "tiled", "density direct"]
+    variants = list(VARIANTS)
     out = {}
     try:
         for variant in variants + variants[::-1]:
-            use(variant)
+            step_module.density, step_module.force = VARIANTS[variant]
             chain = make_fields_chain(cfg, STEPS, dev)
             chain(fs0)  # capture and first replay
             torch.cuda.synchronize()

@@ -39,13 +39,12 @@ F = ctypes.c_float
 SIGNATURES = {
     # key_sorted, n, queries, nq, num_cells, ranks, stream
     "tpusph_qrank": [P, I, P, I, I, P, P],
-    # x, y, z, key, starts, n, C, num_cells, h2, scale, rho, tile, chunk,
-    # stage_min, stream
-    "tpusph_density": [P, P, P, P, P, I, I, I, F, F, P, I, I, I, P],
+    # x, y, z, key, starts, n, C, num_cells, h2, scale, rho, stream
+    "tpusph_density": [P, P, P, P, P, I, I, I, F, F, P, P],
     # x, y, z, vx, vy, vz, rho, p, key, starts, n, C, num_cells, h, h2, eps,
-    # mass, vk, mu, f (3·n field-major), tile, chunk, exact, stage_min, stream
-    "tpusph_force": [P] * 10 + [I, I, I] + [F] * 6 + [P, I, I, I, I, P],
-    # the first design (sph_baseline.cu): as above without tile .. stage_min
+    # mass, vk, mu, f (3·n field-major), stream
+    "tpusph_force": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
+    # the first design (sph_baseline.cu), as above
     "tpusph_density_baseline": [P, P, P, P, P, I, I, I, F, F, P, P],
     "tpusph_force_baseline": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
     # x, n, streams, rounds, bf16, out, stream
