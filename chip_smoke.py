@@ -9,14 +9,23 @@ Phases, each of which raises on failure (exit code 1):
   2. build: compiles the CUDA kernels from tpusph_torch/csrc with nvcc;
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes (262,144 particles, grid init, at steps 0, 20 and
-     100): ranks exact; the tiled density (csrc/sph.cu) and the baseline
+     100): ranks exact, on the step's queries (every cell in order) and
+     also on 1,000,002 unsorted queries (a seeded permutation of the
+     cells), on sorted queries with repeats and values above num_cells and
+     on a query tensor 4 bytes past a 16-byte boundary, the first rank
+     kernel (csrc/sph_baseline.cu) held the same way; the share of the rank
+     kernel's blocks that find an empty span, stage their span in shared
+     memory or search device memory (`qrank.block_spans`); the tiled
+     density (csrc/sph.cu) and the baseline
      (csrc/sph_baseline.cu) rtol 1e-5, force rtol 1e-4 atol 1e-4, and the
      largest difference between tiled and baseline (0 when they agree bit
-     for bit). At each state: the times of baseline, tiled, tiled,
-     baseline in turns (device time: 10 calls in one CUDA graph, the
-     median of 11 replays), the plain version's (CUDA events around 10
-     eager calls), for rank also one `torch.searchsorted` call's
-     (library_ms); each kernel's bound, the
+     for bit). At each state: the times of baseline, new, new, baseline
+     in turns for rank, density and force (device time: 10 calls in one
+     CUDA graph, the median of 11 replays), the plain version's (CUDA
+     events around 10 eager calls), for rank also one `torch.searchsorted`
+     call's (library_ms) and, at step 20, the same turns on the unsorted
+     queries and the rank kernel alone on one block of queries for each
+     SM; each kernel's bound, the
      larger of its bytes (each input read once, each output written once;
      the starts entries it reads) at 3.35 TB/s and its fp32 operations at
      67 TFLOP/s (density 9 a candidate, 4 a pair within h and 1 a target;
@@ -37,14 +46,22 @@ Phases, each of which raises on failure (exit code 1):
      that no particle left the grid and that the state is finite;
   6. the rate probes: each probe kernel against its plain version for
      every dtype, stream count, pt and variant at 64 rounds (f32 FMA, f32
-     density mix and loop probe rtol 1e-5; bf16 bit-equal), the
+     density mix and loop probe rtol 1e-5; bf16 bit-equal), the density
+     mix also at 67 rounds (no multiple of the rounds its loop takes at
+     once) and at 1, and in bf16 bit for bit against its first design; the
      dynamic-trip variants also with desc[rounds] != rounds; at the entry
      points' round counts the f32 FMA bit-equal on tie-free inputs, and the
      loop probe (every variant at R, V0 and V1 at 4R) within rounds·eps
      and a mean difference under 1 % of one round's term; then the two
      probe entry points (`tpusph_torch.scripts.vpu_microbench` and
      `loop_probe`) at their own round counts, every rate finite and
-     positive;
+     positive; the density mix against its first design in turns at every
+     dtype and pt; its issue ceiling (the instructions of a round, counted from
+     the SASS of its loop, on every scheduler of the card at the SM clock
+     `nvidia-smi` reports) and the four loads a round found inside that
+     loop; the probe's best f32 rate as bytes its loads move a clock and
+     SM; and the density kernel's time at each state beside
+     `mix_ceiling_ms`, its candidate pairs over the probe's best f32 rate;
   7. headless free mode through the command line, `python -m tpusph_torch
      -n 262144 -m free --frames 10 --click 2:400,300 --save ...`, run in
      this process: 10 PNGs, a saved state that is finite and inside the
@@ -89,6 +106,7 @@ import math
 import os
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -102,6 +120,7 @@ N_PARITY = 4096
 TIMED_STEPS = 100
 WARMUP_STEPS = 3
 CHECK_ROUNDS = 64  # rounds at which the probes are held against their plain versions
+MIX_ROUNDS = (CHECK_ROUNDS, 67, 1)  # the density mix's: 67 is no multiple of its unroll
 FREE_FRAMES = 10
 FREE_CLICK = "2:400,300"  # frame:pixel, the box centre
 CHAIN_STEPS = 100  # steps per replay of the timed fields chain (bench.py's)
@@ -112,6 +131,7 @@ TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
 # H100 SXM peaks (NVIDIA's data sheet) for the bounds
 MEM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+H100_SMS = 132
 
 
 def require(ok, msg: str) -> None:
@@ -230,17 +250,43 @@ def kernel_phase(card: str, dev) -> dict:
     }
     for r in results.values():
         r["by_step"] = {}
+    cells = torch.arange(nc + 2, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    repeats = torch.randint(0, nc + 2, (500_000,), device=dev, generator=gen).sort().values
+    query_sets = {
+        "cells": cells,
+        "unsorted": cells[torch.randperm(nc + 2, device=dev, generator=gen)],
+        "repeats": torch.cat([repeats, torch.tensor([nc + 1, nc + 7, 2**30], device=dev)]
+                             ).to(torch.int32),
+        "offset": cells[1:],  # contiguous, 4 bytes past a 16-byte boundary
+    }
+    require(query_sets["offset"].data_ptr() % 16 == 4, "the offset queries are aligned")
     for label, st in states.items():
         cl = build_phase(st, cfg)
         key, starts = cl.key_sorted, cl.starts
         n = key.numel()
-        cells = torch.arange(nc + 2, dtype=torch.int32, device=dev)
-        rk, ovf = qrank.rank_queries(key, cells, nc)
-        rp = qrank.rank_queries_plain(key, cells, nc)
-        torch.testing.assert_close(rk, rp, rtol=0, atol=0)
-        require(ovf == 0, f"rank overflow {ovf}")
-        results["rank"]["max_abs_err"] = max(results["rank"]["max_abs_err"],
-                                             float((rk - rp).abs().max()))
+        shares = {}
+        for qname, q in query_sets.items():
+            rk, ovf = qrank.rank_queries(key, q, nc)
+            rb, _ = qrank.rank_queries_baseline(key, q, nc)
+            rp = qrank.rank_queries_plain(key, q, nc)
+            torch.testing.assert_close(rk, rp, rtol=0, atol=0)
+            torch.testing.assert_close(rb, rp, rtol=0, atol=0)
+            require(ovf == 0, f"rank overflow {ovf}")
+            results["rank"]["max_abs_err"] = max(results["rank"]["max_abs_err"],
+                                                 float((rk - rp).abs().max()))
+            lo, hi, staged = qrank.block_spans(key, q)
+            empty = hi == lo
+            shares[qname] = dict(
+                blocks=lo.numel(), empty=float(empty.float().mean()),
+                staged=float((staged & ~empty).float().mean()),
+                wide=float((~staged).float().mean()),
+                mean_span=float((hi - lo).float().mean()), max_span=int((hi - lo).max()))
+        print(f"step {label}: rank blocks of {qrank.BLOCK_QUERIES} queries, stage "
+              f"{qrank.STAGE} keys, share (empty span, staged, searched in device memory): "
+              + "; ".join(f"{k} {v['empty']:.4f}, {v['staged']:.4f}, {v['wide']:.4f} (mean span "
+                          f"{v['mean_span']:.1f}, widest {v['max_span']})"
+                          for k, v in shares.items()) + f"; {card}")
 
         xyz = st.position[cl.perm].T.contiguous()
         vxyz = st.velocity[cl.perm].T.contiguous()
@@ -270,7 +316,8 @@ def kernel_phase(card: str, dev) -> dict:
         cand, entries, lane_eff, staging = window_stats(key, starts, cfg)
         _, within, apart = fused.pair_counts(*xyz, key, starts, cfg)
         _, count = fused.windows(key, starts, cfg)
-        print(f"step {label}: ranks equal; density max|err| "
+        print(f"step {label}: ranks equal (cells, unsorted, repeats and above num_cells, "
+              f"off 16 bytes; new and baseline); density max|err| "
               f"{float((dk - dp).abs().max()):.3e} (max rho {float(dk.max()):.3f}); "
               f"force max|err| {float((fk - fp).abs().max()):.3e} "
               f"(max |f| {float(fk.abs().max()):.3f}); max |new - baseline| density "
@@ -315,17 +362,39 @@ def kernel_phase(card: str, dev) -> dict:
                   f"{flops[name]} flop), share {row['share_of_bound']:.4f}; tiled "
                   f"{cand / row['ms'] / 1e6:.2f} Gpair/s, baseline "
                   f"{cand / row['baseline_ms'] / 1e6:.2f} Gpair/s (N={N_MAIN}; {card})")
-        row = dict(ms=graph_ms(lambda: qrank.rank_queries(key, cells, nc)),
+        results["density"]["by_step"][label]["candidate_pairs"] = cand
+
+        def rank_turns(q):
+            return [graph_ms(lambda: fn(key, q, nc))
+                    for fn in (qrank.rank_queries_baseline, qrank.rank_queries,
+                               qrank.rank_queries, qrank.rank_queries_baseline)]
+
+        turns = rank_turns(cells)
+        row = dict(ms=(turns[1] + turns[2]) / 2, baseline_ms=(turns[0] + turns[3]) / 2,
                    plain_ms=time_ms(lambda: qrank.rank_queries_plain(key, cells, nc), 21),
                    library_ms=graph_ms(lambda: torch.searchsorted(key, cells, out_int32=True)),
-                   baseline_ms=None)
+                   blocks=shares["cells"])
         row["bound_ms"], row["bound_by"] = bound(nbytes["rank"], flops["rank"])
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         results["rank"]["by_step"][label] = row
-        print(f"time rank at step {label}: kernel {row['ms']:.4f} ms, plain "
+        print(f"time rank at step {label}: baseline, new, new, baseline "
+              f"{', '.join(f'{t:.4f}' for t in turns)} ms; plain "
               f"{row['plain_ms']:.4f} ms, torch.searchsorted {row['library_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), share "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes['rank']} B), share "
               f"{row['share_of_bound']:.4f} (N={N_MAIN}; {card})")
+        if label == TIMED_STATE:
+            turns = rank_turns(query_sets["unsorted"])
+            row["unsorted_ms"] = (turns[1] + turns[2]) / 2
+            row["unsorted_baseline_ms"] = (turns[0] + turns[3]) / 2
+            print(f"time rank at step {label} on unsorted queries: baseline, new, new, "
+                  f"baseline {', '.join(f'{t:.4f}' for t in turns)} ms (N={N_MAIN}; {card})")
+            # One block for each SM: a block's own chain of loads and barriers
+            # plus the launch, with nothing queued behind it.
+            few = cells[: H100_SMS * qrank.BLOCK_QUERIES]
+            row["one_block_per_sm_ms"] = graph_ms(lambda: qrank.rank_queries(key, few, nc))
+            print(f"time rank at step {label} on the first {few.numel()} cells (one block of "
+                  f"{qrank.BLOCK_QUERIES} for each of {H100_SMS} SMs): "
+                  f"{row['one_block_per_sm_ms']:.4f} ms (N={N_MAIN}; {card})")
     for r in results.values():  # the row's own numbers: step 20, as before
         r.update(r["by_step"][TIMED_STATE])
         r["at"] = f"{N_MAIN} grid init, step {TIMED_STATE}"
@@ -488,8 +557,8 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
         print(f"chained busy share: {share:.3f} (device "
               f"{device_us / 1e3:.3f} ms over {prof_wall * 1e3:.3f} ms wall, profiled "
               f"replay; {card})")
-        top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / CHAIN_STEPS:.4f}"
-                        for e in events[:8] if e.self_device_time_total > 0)
+        top = "; ".join(f"{e.key[:160]} {e.self_device_time_total / 1e3 / CHAIN_STEPS:.4f}"
+                        for e in events[:12] if e.self_device_time_total > 0)
         print(f"chained device ms per step by kernel: {top}")
     else:
         print("chained busy share: not measured (the profiler shows no device time "
@@ -566,7 +635,7 @@ def main() -> int:
     from tpusph_torch.engine.step import make_step
     from tpusph_torch.kernels import fused, probes, qrank
     from tpusph_torch.scripts import loop_probe as loop_script
-    from tpusph_torch.scripts import card_line, slope, timed, vpu_microbench
+    from tpusph_torch.scripts import card_line, sass_loops, slope, timed, vpu_microbench
     from tpusph_torch.utils import cuda_build
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -707,8 +776,13 @@ def main() -> int:
             t, c = uniform((max(pt, 8), 4), 1.0, 1.05), uniform((8, 128), 1.0, 1.05)
             t[:, 3], c[3] = keys(t.shape[0]), keys(128)
             t, c = t.to(dtype), c.to(dtype)
-            hold("density_mix", probes.density_mix(t, c, pt, r),
-                 probes.density_mix_plain(t, c, pt, r), rtol)
+            for rounds in MIX_ROUNDS:
+                got = probes.density_mix(t, c, pt, rounds)
+                hold("density_mix", got, probes.density_mix_plain(t, c, pt, rounds), rtol)
+                if dtype == torch.bfloat16:
+                    require(torch.equal(got, probes.density_mix_baseline(t, c, pt, rounds)),
+                            f"bf16 density mix differs from its first design (pt {pt}, "
+                            f"{rounds} rounds)")
     pt, bl, cap = 64, 256, loop_script.CAP
     t, cand = uniform((pt, 4), 1.0, 1.05), uniform((8, cap), 1.0, 1.05)
     desc = loop_inputs(r, r)
@@ -720,8 +794,9 @@ def main() -> int:
     for variant in ("V2", "V3", "V4", "V5"):
         hold("loop_probe", probes.loop_probe(variant, desc, t, cand, pt, bl),
              probes.loop_probe_plain(variant, desc, t, cand, pt, bl), 1e-5)
-    print(f"probes at {r} rounds (dynamic trips also at desc[{r}] = {r - 23}) equal "
-          f"their plain versions; max|err| {probe_err}")
+    print(f"probes at {r} rounds (dynamic trips also at desc[{r}] = {r - 23}; the density "
+          f"mix at {MIX_ROUNDS} rounds, bf16 bit for bit its first design) equal their "
+          f"plain versions; max|err| {probe_err}")
 
     # At the entry points' round counts. f32 FMA on inputs where a fused and
     # a split multiply-add round alike: bit-equal, so every round must run
@@ -827,6 +902,65 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
               f"{r['bound_ms'] / r['ms']:.4f}; {card}")
 
+    # The density mix against its first design, in turns, per call at the
+    # entry point's round count.
+    mix = results["density_mix"]
+    for dtype in probes.DTYPES:
+        for pt in (8, 64, 128, 256):
+            tt = torch.ones((max(pt, 8), 4), dtype=dtype, device=dev)
+            cc = torch.ones((8, 128), dtype=dtype, device=dev)
+            turns = [timed(lambda: fn(tt, cc, pt, mix_r), 6) * 1e3
+                     for fn in (probes.density_mix_baseline, probes.density_mix,
+                                probes.density_mix, probes.density_mix_baseline)]
+            if (dtype, pt) == (torch.float32, 128):
+                mix["baseline_ms"] = (turns[0] + turns[3]) / 2
+            print(f"time density_mix ({vpu_microbench.dtype_name(dtype)}, pt {pt}, {mix_r} "
+                  f"rounds): baseline, new, new, baseline "
+                  f"{', '.join(f'{t:.4f}' for t in turns)} ms per call; {card}")
+
+    # The issue ceiling: a round's instructions on every scheduler of the
+    # card, one warp instruction a cycle each. From the SASS of the f32
+    # kernel's loop, which also shows each round's four loads inside it.
+    unroll = int(re.search(r"kMixUnroll = (\d+);",
+                           (cuda_build.CSRC / "probes.cu").read_text()).group(1))
+    loops = sass_loops(path, "density_mix_kernel", "F32Ops")
+    require(loops, "no loop found in the SASS of the f32 density-mix kernel")
+    body, loads = max(loops, key=lambda loop: loop[1])
+    require(loads > 0 and loads % (4 * unroll) == 0,
+            f"the density mix's loop holds {loads} loads, no multiple of 4 x {unroll}")
+    per_round = body / (loads // 4)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ceiling_ms = per_round * mix_r * 128 * 128 / (sms * 4 * 32 * sm_mhz * 1e6) * 1e3
+    mix.update(issue_ceiling_ms=ceiling_ms, sass_instructions_per_round=per_round,
+               sass_loads_per_round=loads / (loads // 4))
+    print(f"density_mix SASS (float32): loops (instructions, loads) {loops}; the main loop "
+          f"takes {loads // 4} rounds in {body} instructions with {loads} LDG inside it = "
+          f"{per_round:.3f} instructions and 4 loads a round")
+    print(f"density_mix issue ceiling (float32, pt 128, {mix_r} rounds): {per_round:.3f} "
+          f"instructions x {128 * 128} pair-lanes x {mix_r} rounds / ({sms} SMs x 4 schedulers "
+          f"x 32 lanes x {sm_mhz:.0f} MHz) = {ceiling_ms:.4f} ms; the kernel ({mix['ms']:.4f} "
+          f"ms) reaches {ceiling_ms / mix['ms']:.4f} of it, the baseline ({mix['baseline_ms']:.4f} "
+          f"ms) {ceiling_ms / mix['baseline_ms']:.4f}; bound {mix['bound_ms']:.4f} ms; {card}")
+
+    # The density kernel beside the probe: its candidate pairs at the
+    # probe's best f32 rate of this run.
+    best = max(rate for key, rate in rates.items()
+               if key[0] == "density_mix" and key[1] == "float32")
+    mix["best_load_bytes_per_clock_per_sm"] = best * 1e9 * 16 / (sms * sm_mhz * 1e6)
+    print(f"density_mix best float32 rate {best:.2f} Gpair-lanes/s: its four 4-byte loads a "
+          f"pair-lane and round are {mix['best_load_bytes_per_clock_per_sm']:.2f} bytes a clock "
+          f"and SM at {sm_mhz:.0f} MHz on {sms} SMs; {card}")
+    for label, row in results["density"]["by_step"].items():
+        row["mix_ceiling_ms"] = row["candidate_pairs"] / (best * 1e9) * 1e3
+        print(f"density at step {label}: kernel {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), mix_ceiling_ms "
+              f"{row['mix_ceiling_ms']:.4f} ({row['candidate_pairs']} candidate pairs at the "
+              f"probe's best {best:.2f} Gpair-lanes/s): the kernel runs at "
+              f"{row['mix_ceiling_ms'] / row['ms']:.4f} of the probe's rate; {card}")
+
     # ------------------------------------------------------ 7. free mode
     with tempfile.TemporaryDirectory() as tmp:
         frames_dir, ckpt = os.path.join(tmp, "frames"), os.path.join(tmp, "free.npz")
@@ -875,7 +1009,10 @@ def main() -> int:
          **{k: r[k] for k in ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by", "library_ms", "baseline_ms",
                               "share_of_bound", "launches_per_replay", "at")},
-         **{k: r[k] for k in ("max_abs_diff_baseline", "by_step") if k in r}}
+         **{k: r[k] for k in ("max_abs_diff_baseline", "by_step", "issue_ceiling_ms",
+                              "sass_instructions_per_round", "sass_loads_per_round",
+                              "best_load_bytes_per_clock_per_sm")
+            if k in r}}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": table}))

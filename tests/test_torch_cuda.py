@@ -10,7 +10,13 @@ atol 1e-4, and on the dense blob an atol at the float32 floor of its sums
 (see the test). The kernels sum in another order than the plain versions,
 and nvcc contracts a*b+c into FMA. The tiled density kernel equals the
 baseline kernel (the first design) bit for bit; the tiled force (one
-1/(2ρ) a pair, rsqrt) is held at the force bar. The rate probes at 64 rounds: f32 FMA,
+1/(2ρ) a pair, rsqrt) is held at the force bar. The block-narrowed rank
+kernel (csrc/qrank.cu) is exact on every path: spans staged in shared
+memory by 16-byte and by 4-byte copies, wide spans searched in device
+memory, scalar loads for ragged tails and pointers off 16 bytes; it equals
+the first design and, inside a replayed CUDA graph, its eager launch. The
+density mix is held at 1, 7, 64 and 65 rounds (its loop takes several
+rounds at once) and in bf16 equals its first design bit for bit. The rate probes at 64 rounds: f32 FMA,
 f32 density mix and the loop probe rtol 1e-5 (FMA against separately
 rounded ops; rsqrtf); bf16 FMA and bf16 density mix bit-equal. At the
 entry points' round counts: the f32 FMA bit-equal on inputs where a fused
@@ -74,6 +80,123 @@ def test_rank_kernel_equals_plain(dev, kind):
     torch.cuda.synchronize()
     assert qrank.rank_queries.launches == before + 1 and ovf == 0
     torch.testing.assert_close(got, qrank.rank_queries_plain(cl.key_sorted, q, nc), rtol=0, atol=0)
+
+
+def _rank_both(key, q, nc):
+    """The kernel's ranks, checked against the plain version and the first
+    design's, with one launch counted on each wrapper."""
+    before = (qrank.rank_queries.launches, qrank.rank_queries_baseline.launches)
+    got, ovf = qrank.rank_queries(key, q, nc)
+    base, _ = qrank.rank_queries_baseline(key, q, nc)
+    torch.cuda.synchronize()
+    assert ovf == 0 and got.dtype == torch.int32 and got.shape == q.shape
+    assert (qrank.rank_queries.launches, qrank.rank_queries_baseline.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, qrank.rank_queries_plain(key, q, nc), rtol=0, atol=0)
+    assert torch.equal(got, base)
+    return got
+
+
+def _rank_queries_of(kind, nc, dev):
+    g = torch.Generator(device=dev).manual_seed(17)
+    cells = torch.arange(nc + 2, dtype=torch.int32, device=dev)
+    if kind == "cells":
+        return cells
+    if kind == "unsorted":  # every block's span is the whole array
+        return cells[torch.randperm(nc + 2, device=dev, generator=g)]
+    if kind == "repeats":  # in order, repeated, with a tail above num_cells
+        q = torch.randint(0, nc + 2, (100_000,), device=dev, generator=g).sort().values
+        tail = torch.tensor([nc + 1, nc + 2, nc + 7, 2**30, -1, -(2**30)], device=dev)
+        return torch.cat([q, tail]).to(torch.int32)
+    assert kind == "offset"  # a contiguous view 4 bytes past a 16-byte boundary
+    q = cells[1:]
+    assert q.data_ptr() % 16 == 4 and q.is_contiguous()
+    return q
+
+
+@pytest.mark.parametrize("queries", ["cells", "unsorted", "repeats", "offset"])
+@pytest.mark.parametrize("kind", ["grid", "blob", "blob_odd", "ragged"])
+def test_rank_kernel_on_every_path(dev, kind, queries):
+    """At most 4096 keys, so every span fits the stage: most blocks of the
+    grid states find an empty span, the blob's blocks stage up to all its
+    rows, at 1001 rows (n % 4 != 0) by 4-byte copies."""
+    cfg, cl, _, _ = _sorted_inputs(kind, dev)
+    q = _rank_queries_of(queries, cfg.num_cells, dev)
+    lo, hi, staged = qrank.block_spans(cl.key_sorted, q)
+    assert bool(staged.all()) and bool((hi > lo).any())
+    assert bool((hi == lo).any()) == (queries != "unsorted")
+    _rank_both(cl.key_sorted, q, cfg.num_cells)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4096, 20_000])
+@pytest.mark.parametrize("keys", ["sentinel", "equal", "wide", "offset"])
+def test_rank_kernel_on_edge_keys(dev, keys, n):
+    """All-sentinel keys, all-equal keys, one cell holding three quarters of
+    the keys, and keys that start 4 bytes past a 16-byte boundary. At
+    n = 20,000 a span can exceed the stage: the dense cell's block and every
+    block of unsorted queries search device memory."""
+    nc = 32**3
+    g = torch.Generator(device=dev).manual_seed(n)
+    if keys == "sentinel":
+        key = torch.full((n,), nc, dtype=torch.int32, device=dev)
+    elif keys == "equal":
+        key = torch.full((n,), 777, dtype=torch.int32, device=dev)
+    elif keys == "wide":
+        key = torch.randint(0, nc, (n,), device=dev, generator=g).to(torch.int32)
+        key[: n * 3 // 4] = 5000
+        key = key.sort().values
+    else:
+        key = torch.randint(0, nc + 1, (n + 1,), device=dev, generator=g).to(torch.int32)
+        key = key.sort().values[1:]
+        assert n == 0 or key.data_ptr() % 16 == 4
+    cells = torch.arange(nc + 2, dtype=torch.int32, device=dev)
+    unsorted = cells[torch.randperm(nc + 2, device=dev, generator=g)]
+    if n == 20_000:
+        if keys == "wide":
+            assert not bool(qrank.block_spans(key, cells)[2].all())
+        if keys in ("wide", "offset"):
+            assert float(qrank.block_spans(key, unsorted)[2].float().mean()) < 0.1
+    few = torch.tensor([5000, 777, 0, nc, nc + 1, nc + 2, -3], dtype=torch.int32, device=dev)
+    for q in (cells, unsorted, few):
+        _rank_both(key, q, nc)
+
+
+@pytest.mark.parametrize("nq,offset", [(0, 0), (1, 0), (5, 3), (1023, 0), (1025, 1), (4100, 2)])
+def test_rank_kernel_on_short_and_offset_queries(dev, nq, offset):
+    cfg, cl, _, _ = _sorted_inputs("grid", dev)
+    nc = cfg.num_cells
+    g = torch.Generator(device=dev).manual_seed(nq)
+    q = torch.randint(0, nc + 2, (nq + offset,), device=dev, generator=g).to(torch.int32)[offset:]
+    assert q.is_contiguous() and (nq == 0 or q.data_ptr() % 16 == 4 * offset)
+    got = _rank_both(cl.key_sorted, q, nc)
+    assert got.numel() == nq
+
+
+def test_rank_kernel_in_a_replayed_graph_equals_eager(dev):
+    """The launch is capturable: nothing in it reads the host or allocates
+    outside PyTorch's allocator. A replay ranks the keys then in the input
+    tensor, twice."""
+    cfg, cl, _, _ = _sorted_inputs("grid", dev)
+    nc = cfg.num_cells
+    cells = torch.arange(nc + 2, dtype=torch.int32, device=dev)
+    key = cl.key_sorted.clone()
+    qrank.rank_queries(key, cells, nc)  # build and load outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qrank.rank_queries(key, cells, nc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = qrank.rank_queries(key, cells, nc)
+    other = _sorted_inputs("blob", dev)[1].key_sorted
+    for keys in (cl.key_sorted, other, cl.key_sorted):
+        key.copy_(keys)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager, _ = qrank.rank_queries(keys, cells, nc)
+        assert torch.equal(out, eager)
+        assert torch.equal(out, qrank.rank_queries_plain(keys, cells, nc))
 
 
 @pytest.mark.parametrize("kind", ["grid", "blob"])
@@ -248,17 +371,28 @@ def test_fma_probe_equals_plain(dev, dtype, streams):
     _same(got, probes.fma_probe_plain(x, streams, 64), 1e-5 if dtype == torch.float32 else 0)
 
 
+@pytest.mark.parametrize("rounds", [1, 7, 64, 65])
 @pytest.mark.parametrize("pt", [8, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_density_mix_equals_plain(dev, dtype, pt):
+def test_density_mix_equals_plain(dev, dtype, pt, rounds):
+    """1 and 7 rounds run only the loop of single rounds, 64 only the loop
+    that takes several rounds at once, 65 both. bf16 equals the first
+    design bit for bit; f32 is held to it at the plain version's bar."""
     g = torch.Generator(device=dev).manual_seed(pt)
     t = torch.empty((max(pt, 8), 4), device=dev).uniform_(1.0, 1.05, generator=g)
     c = torch.empty((8, 128), device=dev).uniform_(1.0, 1.05, generator=g)
     t[:, 3] = torch.randint(0, 3, (t.shape[0],), device=dev, generator=g).float()
     c[3] = torch.randint(0, 3, (128,), device=dev, generator=g).float()
     t, c = t.to(dtype), c.to(dtype)
-    got = probes.density_mix(t, c, pt, 64)
-    _same(got, probes.density_mix_plain(t, c, pt, 64), 1e-5 if dtype == torch.float32 else 0)
+    rtol = 1e-5 if dtype == torch.float32 else 0
+    before = (probes.density_mix.launches, probes.density_mix_baseline.launches)
+    got = probes.density_mix(t, c, pt, rounds)
+    base = probes.density_mix_baseline(t, c, pt, rounds)
+    assert (probes.density_mix.launches, probes.density_mix_baseline.launches) == (
+        before[0] + 1, before[1] + 1)
+    _same(got, probes.density_mix_plain(t, c, pt, rounds), rtol)
+    _same(got, base, rtol)
+    assert (got != 0).any() and (got == 0).any()  # the masks cut some lanes
 
 
 @pytest.mark.parametrize("streams", probes.FMA_STREAMS)

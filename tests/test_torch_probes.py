@@ -10,7 +10,13 @@ bit-equal (every op rounds to bf16 in both); loop probe V0–V5 rtol 1e-5.
 The loop probe's own inputs, uniform(1, 9), put no pair within h and make
 every output 0, so the inputs here are uniform(1, 1.05), where every
 output is non-zero; the density mix gets key columns in {0, 1, 2}, so that
-the key compare rejects some pairs."""
+the key compare rejects some pairs.
+
+The CUDA density mix takes several rounds at once and adds their terms in
+round order. What lets it do that is held here on the plain version: the
+sum over a + b rounds is the sum over a rounds continued by b ordered adds
+of one round's term (bf16 bit-equal, f32 too: the same adds in the same
+order)."""
 
 import importlib.util
 import os
@@ -140,6 +146,32 @@ def test_density_mix_matches_tpu_kernel(scripts, dtype, pt):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=0)
     else:
         np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("a,b", [(1, 0), (1, 7), (8, 3), (16, 8), (64, 3)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_density_mix_continues_in_round_order(dtype, a, b):
+    tdt, _ = DTYPES[dtype]
+    pt = 8
+    t, c = _mix_inputs(pt, a + b)
+    t, c = _to_torch(t, tdt), _to_torch(c, tdt)
+    term = probes.density_mix_plain(t, c, pt, 1).to(tdt)  # 0 + term = term
+    assert (term == 0).any() and (term != 0).any()
+    cont = probes.density_mix_plain(t, c, pt, a).to(tdt)  # exact: acc is in tdt
+    for _ in range(b):
+        cont = cont + term
+    whole = probes.density_mix_plain(t, c, pt, a + b)
+    assert torch.equal(whole, cont.to(torch.float32))
+    if b:  # one round fewer shows in the sum
+        assert not torch.equal(whole, probes.density_mix_plain(t, c, pt, a + b - 1))
+
+
+def test_density_mix_baseline_takes_the_plain_version_on_the_cpu():
+    t, c = (torch.from_numpy(a) for a in _mix_inputs(8, 2))
+    before = (probes.density_mix.launches, probes.density_mix_baseline.launches)
+    assert torch.equal(probes.density_mix_baseline(t, c, 8, 5),
+                       probes.density_mix_plain(t, c, 8, 5))
+    assert (probes.density_mix.launches, probes.density_mix_baseline.launches) == before
 
 
 def _loop_inputs(pt, bl, cap, rounds, seed):

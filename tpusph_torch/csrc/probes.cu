@@ -23,11 +23,13 @@
 // instructions per pair-lane per round from registers and L1.
 //
 // Threads: one per output element (two per thread for the packed bf16
-// FMA), in blocks of 128 so that a small block spreads over many SMs.
+// FMA). The FMA and loop probes launch blocks of 128 so that a small block
+// spreads over many SMs; the density mix has its own launch shape, below.
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "probe_ops.cuh"
 
 namespace tpusph {
 namespace {
@@ -37,29 +39,6 @@ constexpr int kProbeBlock = 128;
 inline int probe_blocks(int items) {
   return (items + kProbeBlock - 1) / kProbeBlock;
 }
-
-// Arithmetic in the probe's dtype. float leaves contraction to nvcc, as in
-// sph.cu; bf16 uses the _rn intrinsics, which nvcc never contracts into an
-// FMA, so every op rounds to bf16 as in the plain PyTorch version.
-struct F32Ops {
-  using T = float;
-  static __device__ __forceinline__ T sub(T a, T b) { return a - b; }
-  static __device__ __forceinline__ T add(T a, T b) { return a + b; }
-  static __device__ __forceinline__ T mul(T a, T b) { return a * b; }
-  static __device__ __forceinline__ T max(T a, T b) { return fmaxf(a, b); }
-  static __device__ __forceinline__ float to_f32(T a) { return a; }
-  static __device__ __forceinline__ T from_f32(float a) { return a; }
-};
-
-struct BF16Ops {
-  using T = __nv_bfloat16;
-  static __device__ __forceinline__ T sub(T a, T b) { return __hsub_rn(a, b); }
-  static __device__ __forceinline__ T add(T a, T b) { return __hadd_rn(a, b); }
-  static __device__ __forceinline__ T mul(T a, T b) { return __hmul_rn(a, b); }
-  static __device__ __forceinline__ T max(T a, T b) { return __hmax(a, b); }
-  static __device__ __forceinline__ float to_f32(T a) { return __bfloat162float(a); }
-  static __device__ __forceinline__ T from_f32(float a) { return __float2bfloat16_rn(a); }
-};
 
 // ---------------------------------------------------------------- FMA probe
 // `S` independent accumulators a_k = x + k per element, each updated
@@ -118,9 +97,37 @@ __global__ void __launch_bounds__(kProbeBlock)
 // r^2 = dx^2 + dy^2 + dz^2, key compare |ck - tk| <= 1 and the lane mask
 // lane < 100 + i*0 (both in f32), w = max(h^2 - r^2, 0)^3, masked add.
 // t is (>= pt, 4) rows (x, y, z, key); c is (8, 128), rows x, y, z, key.
+//
+// One thread per pair-lane. A round is a chain load -> sub -> mul/fma ->
+// max -> mul -> mul -> select -> add, and a (128, 128) block is 512 warps
+// on the card's 528 schedulers, one warp each. The first design
+// (sph_baseline.cu) took the rounds one by one in blocks of 128 threads.
+// Here the loop body takes kMixUnroll = 16 rounds: it issues their 64
+// loads, computes the 16 terms, which do not depend on each other, and adds
+// them to the accumulator in round order, so the sum is the same bits as
+// round by round; a second loop takes the rounds % kMixUnroll left. Every
+// round keeps its own `r * zero` index and its own `r` in the lane mask.
+// Blocks are single warps (kMixBlock = 32): the four warps of a 128-thread
+// block run in step and meet at the SM's load path every round, warps of
+// separate blocks drift apart and a warp runs as fast as one alone on its
+// SM. A pair-lane's rounds are never split across threads, which would
+// reorder its sum, so pt 8 (32 warps) and pt 64 (256 warps) cannot fill the
+// card.
+//
+// What bounds it on the H100 is the load path, not the schedulers: the four
+// loads of a round are four 128-byte requests a warp, and an SM moves about
+// 64 bytes of such loads a clock (measured: the best rate, at pt 256, is
+// 16 bytes a pair-lane and round at that width), while a round's ~23
+// instructions would take half that time to issue. Bit-equal sums leave no
+// way to load less: one thread summing several targets of one lane would
+// share the loads, but at these block sizes it leaves schedulers without a
+// warp and measured slower.
+
+constexpr int kMixBlock = 32;
+constexpr int kMixUnroll = 16;
 
 template <class A>
-__global__ void __launch_bounds__(kProbeBlock)
+__global__ void __launch_bounds__(kMixBlock)
     density_mix_kernel(const typename A::T* __restrict__ t,
                        const typename A::T* __restrict__ c, int pt, int rounds,
                        int zero, float* __restrict__ out) {
@@ -137,13 +144,10 @@ __global__ void __launch_bounds__(kProbeBlock)
   const T z0 = A::from_f32(0.0f);
   const float lanef = static_cast<float>(lane);
   const T* __restrict__ cl = c + lane;
-  T acc = z0;
-  for (int r = 0; r < rounds; ++r) {
-    const int o = r * zero;  // 0 at run time; keeps the loads in the loop
-    const T cx = cl[o];
-    const T cy = cl[128 + o];
-    const T cz = cl[256 + o];
-    const float ck = A::to_f32(cl[384 + o]);
+
+  // One round's masked term from its loaded candidate.
+  auto term = [&](int r, T cx, T cy, T cz, T ckey) {
+    const float ck = A::to_f32(ckey);
     const T dx = A::sub(tx, cx);
     const T dy = A::sub(ty, cy);
     const T dz = A::sub(tz, cz);
@@ -152,7 +156,30 @@ __global__ void __launch_bounds__(kProbeBlock)
     const bool live = keyhit && (lanef < 100.0f + static_cast<float>(r) * 0.0f);
     T w = A::max(A::sub(h2, r2), z0);
     w = A::mul(A::mul(w, w), w);
-    acc = A::add(acc, live ? w : z0);
+    return live ? w : z0;
+  };
+
+  T acc = z0;
+  int r = 0;
+  for (; r + kMixUnroll <= rounds; r += kMixUnroll) {
+    T cx[kMixUnroll], cy[kMixUnroll], cz[kMixUnroll], ck[kMixUnroll], w[kMixUnroll];
+#pragma unroll
+    for (int u = 0; u < kMixUnroll; ++u) {
+      const int o = (r + u) * zero;  // 0 at run time; keeps the loads in the loop
+      cx[u] = cl[o];
+      cy[u] = cl[128 + o];
+      cz[u] = cl[256 + o];
+      ck[u] = cl[384 + o];
+    }
+#pragma unroll
+    for (int u = 0; u < kMixUnroll; ++u) w[u] = term(r + u, cx[u], cy[u], cz[u], ck[u]);
+#pragma unroll
+    for (int u = 0; u < kMixUnroll; ++u) acc = A::add(acc, w[u]);  // in round order
+  }
+#pragma unroll 1
+  for (; r < rounds; ++r) {
+    const int o = r * zero;
+    acc = A::add(acc, term(r, cl[o], cl[128 + o], cl[256 + o], cl[384 + o]));
   }
   out[i] = A::to_f32(acc);
 }
@@ -301,13 +328,13 @@ extern "C" int tpusph_density_mix(const void* t, const void* c, int pt, int roun
                                   int bf16, float* out, cudaStream_t stream) {
   using namespace tpusph;
   if (pt > 0) {
-    const int g = probe_blocks(pt * 128);
+    const int g = (pt * 128 + kMixBlock - 1) / kMixBlock;
     if (bf16) {
-      density_mix_kernel<BF16Ops><<<g, kProbeBlock, 0, stream>>>(
+      density_mix_kernel<BF16Ops><<<g, kMixBlock, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(t), static_cast<const __nv_bfloat16*>(c),
           pt, rounds, 0, out);
     } else {
-      density_mix_kernel<F32Ops><<<g, kProbeBlock, 0, stream>>>(
+      density_mix_kernel<F32Ops><<<g, kMixBlock, 0, stream>>>(
           static_cast<const float*>(t), static_cast<const float*>(c), pt, rounds, 0,
           out);
     }

@@ -1,9 +1,11 @@
-// The first design of the density and force passes, kept as the baseline
-// that `chip_smoke.py` phase 3 and the GPU tests time and compare the tiled
-// kernels of sph.cu against (baseline, tiled, tiled, baseline on one card).
-// The kernels are unchanged from their first version; only the entry points
-// are renamed (tpusph_density_baseline, tpusph_force_baseline). The engine
-// never launches them.
+// The first designs of the kernels that were later redesigned for the
+// H100, kept as the baselines that `chip_smoke.py` and the GPU tests time
+// and compare the redesigned kernels against (baseline, new, new, baseline
+// on one card): the density and force passes (now sph.cu), the rank of
+// queries (now qrank.cu) and the density-mix probe (now probes.cu). The
+// kernels are unchanged from their first version; only the entry points are
+// renamed (tpusph_*_baseline). The engine and the probe scripts never
+// launch them.
 //
 // Replaces tpusph/pallas/fused.py, like sph.cu:
 //   density_pallas / _density_kernel -> tpusph_density_baseline
@@ -27,9 +29,11 @@
 // Bound by load latency (each candidate is 3 or 8 dependent __ldg gathers
 // after two loads of the starts table) and by warp divergence, where the
 // 9 window lengths differ within a warp; sph.cu says what the tiled design
-// does about both.
+// does about both. The rank and the density-mix probe have their notes
+// at their kernels below.
 
 #include "common.cuh"
+#include "probe_ops.cuh"
 
 namespace tpusph {
 namespace {
@@ -151,6 +155,82 @@ __global__ void __launch_bounds__(kBlock)
   f[2 * n + i] = az;
 }
 
+// The first rank kernel (replaces tpusph/pallas/qrank.py rank_queries_pallas,
+// like qrank.cu): ranks[i] = #{j : key_sorted[j] < queries[i]}, every query
+// a lower-bound binary search over the whole array by one thread. The keys
+// (1 MB at 262,144 particles) stay in L2 and neighbouring queries walk
+// nearly the same path, but each query waits for about log2(n) = 18
+// dependent loads; qrank.cu says what the block-narrowed design does about
+// that. Queries above num_cells answer n.
+__global__ void __launch_bounds__(kBlock)
+    qrank_kernel(const int* __restrict__ key_sorted, int n,
+                 const int* __restrict__ queries, int nq, int num_cells,
+                 int* __restrict__ ranks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  const int q = queries[i];
+  if (q > num_cells) {
+    ranks[i] = n;
+    return;
+  }
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(key_sorted + mid) < q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  ranks[i] = lo;
+}
+
+// The first density-mix probe (replaces scripts/vpu_microbench.py
+// make_density_mix_kernel, like probes.cu, which describes the op mix and
+// the `r * zero` index): one thread per pair-lane in blocks of 128, the
+// rounds taken one by one, each a dependent chain from its four loads to
+// the add.
+constexpr int kMixBaselineBlock = 128;
+
+template <class A>
+__global__ void __launch_bounds__(kMixBaselineBlock)
+    density_mix_baseline_kernel(const typename A::T* __restrict__ t,
+                                const typename A::T* __restrict__ c, int pt,
+                                int rounds, int zero, float* __restrict__ out) {
+  using T = typename A::T;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pt * 128) return;
+  const int p = i >> 7;
+  const int lane = i & 127;
+  const T tx = t[4 * p];
+  const T ty = t[4 * p + 1];
+  const T tz = t[4 * p + 2];
+  const float tk = A::to_f32(t[4 * p + 3]);
+  const T h2 = A::from_f32(0.01f);
+  const T z0 = A::from_f32(0.0f);
+  const float lanef = static_cast<float>(lane);
+  const T* __restrict__ cl = c + lane;
+  T acc = z0;
+  for (int r = 0; r < rounds; ++r) {
+    const int o = r * zero;  // 0 at run time; keeps the loads in the loop
+    const T cx = cl[o];
+    const T cy = cl[128 + o];
+    const T cz = cl[256 + o];
+    const float ck = A::to_f32(cl[384 + o]);
+    const T dx = A::sub(tx, cx);
+    const T dy = A::sub(ty, cy);
+    const T dz = A::sub(tz, cz);
+    const T r2 = A::add(A::add(A::mul(dx, dx), A::mul(dy, dy)), A::mul(dz, dz));
+    const bool keyhit = fabsf(ck - tk) <= 1.0f;
+    const bool live = keyhit && (lanef < 100.0f + static_cast<float>(r) * 0.0f);
+    T w = A::max(A::sub(h2, r2), z0);
+    w = A::mul(A::mul(w, w), w);
+    acc = A::add(acc, live ? w : z0);
+  }
+  out[i] = A::to_f32(acc);
+}
+
 }  // namespace
 }  // namespace tpusph
 
@@ -177,6 +257,37 @@ extern "C" int tpusph_force_baseline(const float* x, const float* y, const float
     tpusph::force_kernel<<<tpusph::num_blocks(n), tpusph::kBlock, 0, stream>>>(
         x, y, z, vx, vy, vz, rho, p, key, starts, n, C, nc, h, h2, eps, m, vk,
         mu, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpusph_qrank_baseline(const int* key_sorted, int n, const int* queries,
+                                     int nq, int num_cells, int* ranks,
+                                     cudaStream_t stream) {
+  if (nq > 0) {
+    tpusph::qrank_kernel<<<tpusph::num_blocks(nq), tpusph::kBlock, 0, stream>>>(
+        key_sorted, n, queries, nq, num_cells, ranks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// t: (>= pt, 4), c: (8, 128), both f32 (bf16 = 0) or bf16 (bf16 = 1);
+// out: f32 (pt, 128).
+extern "C" int tpusph_density_mix_baseline(const void* t, const void* c, int pt,
+                                           int rounds, int bf16, float* out,
+                                           cudaStream_t stream) {
+  using namespace tpusph;
+  if (pt > 0) {
+    const int g = (pt * 128 + kMixBaselineBlock - 1) / kMixBaselineBlock;
+    if (bf16) {
+      density_mix_baseline_kernel<BF16Ops><<<g, kMixBaselineBlock, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(t), static_cast<const __nv_bfloat16*>(c),
+          pt, rounds, 0, out);
+    } else {
+      density_mix_baseline_kernel<F32Ops><<<g, kMixBaselineBlock, 0, stream>>>(
+          static_cast<const float*>(t), static_cast<const float*>(c), pt, rounds, 0,
+          out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -146,10 +146,7 @@ def density_mix_plain(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) ->
     return acc.to(torch.float32)
 
 
-def density_mix(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) -> torch.Tensor:
-    """The density-mix probe (see `density_mix_plain`); t (≥ pt, 4) and
-    c (8, 128), both f32 or both bf16. Launches `tpusph_density_mix` for
-    CUDA tensors: one thread per pair-lane."""
+def _launch_density_mix(entry: str, t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int):
     dev = t.device
     _check_dtype("t", t)
     if t.dim() != 2 or t.shape[0] < pt or t.shape[1] != 4:
@@ -160,19 +157,41 @@ def density_mix(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) -> torch
         return density_mix_plain(t, c, pt, rounds)
     from tpusph_torch.utils import cuda_build
 
-    lib = cuda_build.library()
     out = torch.empty((pt, LANES), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.tpusph_density_mix(
+        err = getattr(cuda_build.library(), entry)(
             t.data_ptr(), c.data_ptr(), pt, rounds, int(t.dtype == torch.bfloat16),
             out.data_ptr(), stream_of(dev),
         )
-    cuda_build.check(err, "density_mix")
-    density_mix.launches += 1
+    cuda_build.check(err, entry)
+    return out
+
+
+def density_mix(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) -> torch.Tensor:
+    """The density-mix probe (see `density_mix_plain`); t (≥ pt, 4) and
+    c (8, 128), both f32 or both bf16. Launches `tpusph_density_mix` for
+    CUDA tensors: one thread per pair-lane, several rounds in flight, their
+    terms added in round order."""
+    out = _launch_density_mix("tpusph_density_mix", t, c, pt, rounds)
+    if out.is_cuda:
+        density_mix.launches += 1
     return out
 
 
 density_mix.launches = 0
+
+
+def density_mix_baseline(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) -> torch.Tensor:
+    """`density_mix` on the first design's kernel (`csrc/sph_baseline.cu`,
+    the rounds one by one), which `chip_smoke.py` and the GPU tests time
+    the probe against."""
+    out = _launch_density_mix("tpusph_density_mix_baseline", t, c, pt, rounds)
+    if out.is_cuda:
+        density_mix_baseline.launches += 1
+    return out
+
+
+density_mix_baseline.launches = 0
 
 
 # ------------------------------------------------------ loop-overhead probe

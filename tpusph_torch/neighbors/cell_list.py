@@ -25,6 +25,7 @@ are stable on the same keys.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -44,11 +45,19 @@ def starts_table(key: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     return starts
 
 
+@functools.cache
+def cell_queries(num_cells: int, device: torch.device) -> torch.Tensor:
+    """int32 0 .. num_cells + 1, the queries of the starts table. The same
+    tensor for every call with (num_cells, device), so a step writes no
+    4 MB of cell numbers; callers never write it."""
+    return torch.arange(num_cells + 2, dtype=torch.int32, device=device)
+
+
 def starts_from_sorted(key_sorted: torch.Tensor, cfg: SimConfig):
     """(starts int32[num_cells + 2], overflow) from the sorted keys: the rank
     of every cell among them, one launch of the rank kernel. The overflow is
-    always 0: the binary search has no key window."""
-    cells = torch.arange(cfg.num_cells + 2, dtype=torch.int32, device=key_sorted.device)
+    always 0: the rank kernel has no key window to overflow."""
+    cells = cell_queries(cfg.num_cells, key_sorted.device)
     return rank_queries(key_sorted, cells, cfg.num_cells)
 
 

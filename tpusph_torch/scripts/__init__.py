@@ -13,6 +13,9 @@ recorded around the launch.
 
 from __future__ import annotations
 
+import os
+import re
+import shutil
 import statistics
 import subprocess
 
@@ -91,3 +94,30 @@ def slope(t_lo: float, t_hi: float, rounds_lo: int, rounds_hi: int) -> float:
             f"{t_hi:.3e} s at {rounds_hi} rounds"
         )
     return dt
+
+
+def sass_loops(library, *name_parts: str) -> list[tuple[int, int]]:
+    """(instructions, global loads) of each loop of one kernel in a built
+    library: `cuobjdump -sass` of `library`, the function whose mangled name
+    holds every one of `name_parts`, and in it each backward branch with
+    the instructions from its target up to it, LDG among them counted.
+    Raises if `cuobjdump` or the kernel is not found."""
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    found = [body for head, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                                               sass, flags=re.S)
+             if all(part in head for part in name_parts)]
+    if len(found) != 1:
+        raise RuntimeError(f"{len(found)} kernels in {library} match {name_parts}")
+    # an instruction line: /*address*/ text ; (its second line holds bits only)
+    code = [(int(addr, 16), text) for addr, text in
+            re.findall(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", found[0], flags=re.M)]
+    loops = []
+    for addr, text in code:
+        branch = re.search(r"\bBRA\S*\s+(?:\S+,\s*)?`?\(?(0x[0-9a-f]+)", text)
+        if branch and int(branch.group(1), 16) <= addr:
+            body = [t for a, t in code if int(branch.group(1), 16) <= a <= addr]
+            loops.append((len(body), sum("LDG" in t for t in body)))
+    return loops

@@ -1,15 +1,19 @@
 """The 100-step fields chain at 262,144 grid init (`make_fields_chain`, one
-CUDA-graph replay) on the baseline density and force kernels and on the
-tiled ones, in turns on one card:
+CUDA-graph replay) on the first designs of its kernels and on the
+redesigned ones, in turns on one card:
 
     python -m tpusph_torch.scripts.chain_turns [N]
 
 Variants, run in the order given and then in reverse: `baseline` (the
-first design, `fused.density_baseline` / `force_baseline`) and `tiled`
-(`fused.density` / `force`, what the engine launches). Each variant captures its own chain; its timesteps/s are
-100 over the median wall time of 5 replays from grid init up to a
-synchronize, and its device time by kernel comes from one profiled
-replay. Prints one line per run with the card's name and power limit.
+first density and force kernels, `fused.density_baseline` /
+`force_baseline`, with the engine's rank kernel), `first_rank` (the first
+rank kernel, `qrank.rank_queries_baseline`, with the engine's density and
+force) and `engine` (`qrank.rank_queries`, `fused.density` / `force`: what
+the engine launches). Each variant captures its own chain; its
+timesteps/s are 100 over the median wall time of 5 replays from grid init
+up to a synchronize, and its device time by kernel comes from one
+profiled replay. Prints one line per run with the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -26,16 +30,25 @@ from tpusph_torch.core.config import tuned_config
 from tpusph_torch.core.init import init_state
 from tpusph_torch.engine import step as step_module
 from tpusph_torch.engine.step import fields_from_state, make_fields_chain
-from tpusph_torch.kernels import fused
+from tpusph_torch.kernels import fused, qrank
+from tpusph_torch.neighbors import cell_list
 from tpusph_torch.scripts import card_line, cuda_device
 
 STEPS = 100
 
 
+# variant → (rank, density, force)
 VARIANTS = {
-    "baseline": (fused.density_baseline, fused.force_baseline),
-    "tiled": (fused.density, fused.force),
+    "baseline": (qrank.rank_queries, fused.density_baseline, fused.force_baseline),
+    "first_rank": (qrank.rank_queries_baseline, fused.density, fused.force),
+    "engine": (qrank.rank_queries, fused.density, fused.force),
 }
+
+
+def _use(rank, density, force) -> None:
+    """Point the step at these kernels: it reads them from its modules."""
+    cell_list.rank_queries = rank
+    step_module.density, step_module.force = density, force
 
 
 def main(argv=None) -> dict:
@@ -45,12 +58,12 @@ def main(argv=None) -> dict:
     card = card_line()
     cfg = tuned_config(n)
     fs0 = fields_from_state(init_state(cfg, device=dev))
-    saved = (step_module.density, step_module.force)
+    saved = (cell_list.rank_queries, step_module.density, step_module.force)
     variants = list(VARIANTS)
     out = {}
     try:
         for variant in variants + variants[::-1]:
-            step_module.density, step_module.force = VARIANTS[variant]
+            _use(*VARIANTS[variant])
             chain = make_fields_chain(cfg, STEPS, dev)
             chain(fs0)  # capture and first replay
             torch.cuda.synchronize()
@@ -72,11 +85,11 @@ def main(argv=None) -> dict:
             rate = STEPS / statistics.median(walls)
             out.setdefault(variant, []).append(rate)
             print(f"chain turns N={n} {variant}: {rate:.3f} timesteps/s (median of 5 "
-                  f"replays); device {device_ms:.3f} ms a replay; density "
-                  f"{per_step('density'):.4f}, force {per_step('force'):.4f} ms a step; "
-                  f"{card}", flush=True)
+                  f"replays); device {device_ms:.3f} ms a replay; rank "
+                  f"{per_step('qrank'):.4f}, density {per_step('density'):.4f}, force "
+                  f"{per_step('force'):.4f} ms a step; {card}", flush=True)
     finally:
-        step_module.density, step_module.force = saved
+        _use(*saved)
     return out
 
 

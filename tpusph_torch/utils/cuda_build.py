@@ -47,6 +47,8 @@ SIGNATURES = {
     # the first design (sph_baseline.cu), as above
     "tpusph_density_baseline": [P, P, P, P, P, I, I, I, F, F, P, P],
     "tpusph_force_baseline": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
+    "tpusph_qrank_baseline": [P, I, P, I, I, P, P],
+    "tpusph_density_mix_baseline": [P, P, I, I, I, P, P],
     # x, n, streams, rounds, bf16, out, stream
     "tpusph_fma_probe": [P, I, I, I, I, P, P],
     # t, c, pt, rounds, bf16, out, stream
