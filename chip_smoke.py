@@ -49,19 +49,35 @@ Phases, each of which raises on failure (exit code 1):
      density mix and loop probe rtol 1e-5; bf16 bit-equal), the density
      mix also at 67 rounds (no multiple of the rounds its loop takes at
      once) and at 1, and in bf16 bit for bit against its first design; the
-     dynamic-trip variants also with desc[rounds] != rounds; at the entry
-     points' round counts the f32 FMA bit-equal on tie-free inputs, and the
-     loop probe (every variant at R, V0 and V1 at 4R) within rounds·eps
-     and a mean difference under 1 % of one round's term; then the two
-     probe entry points (`tpusph_torch.scripts.vpu_microbench` and
+     loop probe at 64, 67 and 1 rounds with its candidates staged in shared
+     memory and read from device memory, its first design
+     (csrc/sph_baseline.cu) at 64; the dynamic-trip variants also with
+     desc[rounds] != rounds; at the entry points' round counts the f32 FMA
+     bit-equal on tie-free inputs, and the loop probe and its first design
+     (every variant at R, V0 and V1 of the new one at 4R) within rounds·eps
+     and a mean difference under 1 % of one round's term, with the largest
+     difference between the two at R (0 when they agree bit for bit); then
+     the two probe entry points (`tpusph_torch.scripts.vpu_microbench` and
      `loop_probe`) at their own round counts, every rate finite and
-     positive; the density mix against its first design in turns at every
+     positive, and the share of the loop probe's calls that staged; the
+     density mix against its first design in turns at every
      dtype and pt; its issue ceiling (the instructions of a round, counted from
      the SASS of its loop, on every scheduler of the card at the SM clock
      `nvidia-smi` reports) and the four loads a round found inside that
      loop; the probe's best f32 rate as bytes its loads move a clock and
-     SM; and the density kernel's time at each state beside
+     SM; the density kernel's time at each state beside
      `mix_ceiling_ms`, its candidate pairs over the probe's best f32 rate;
+     the loop probe against its first design in turns (first, new, new,
+     first; ms a call by CUDA events and device ms of 10 calls in one CUDA
+     graph) for V0-V5 at pt 64 and V3 and V5 at pt 8 and 128; the issue
+     ceilings of V0, V3 and V5 from the SASS of their staged main loops,
+     each round's three candidate loads (LDS) inside them, and the share of
+     each ceiling reached by the call, its device time and the slope; V3's
+     rate as bytes of candidate loads a clock and SM; and the force
+     kernel's time at each state beside `force_mix_ms`, its candidate pairs
+     over V5's rate (the force's op mix), and the finer reading that prices
+     only the pairs that take the force arithmetic at V5's rate and the
+     others at V3's;
   7. headless free mode through the command line, `python -m tpusph_torch
      -n 262144 -m free --frames 10 --click 2:400,300 --save ...`, run in
      this process: 10 PNGs, a saved state that is finite and inside the
@@ -121,6 +137,7 @@ TIMED_STEPS = 100
 WARMUP_STEPS = 3
 CHECK_ROUNDS = 64  # rounds at which the probes are held against their plain versions
 MIX_ROUNDS = (CHECK_ROUNDS, 67, 1)  # the density mix's: 67 is no multiple of its unroll
+LOOP_ROUNDS = (CHECK_ROUNDS, 67, 1)  # the loop probe's, likewise
 FREE_FRAMES = 10
 FREE_CLICK = "2:400,300"  # frame:pixel, the box centre
 CHAIN_STEPS = 100  # steps per replay of the timed fields chain (bench.py's)
@@ -363,6 +380,7 @@ def kernel_phase(card: str, dev) -> dict:
                   f"{cand / row['ms'] / 1e6:.2f} Gpair/s, baseline "
                   f"{cand / row['baseline_ms'] / 1e6:.2f} Gpair/s (N={N_MAIN}; {card})")
         results["density"]["by_step"][label]["candidate_pairs"] = cand
+        results["force"]["by_step"][label].update(candidate_pairs=cand, force_pairs=apart)
 
         def rank_turns(q):
             return [graph_ms(lambda: fn(key, q, nc))
@@ -635,7 +653,8 @@ def main() -> int:
     from tpusph_torch.engine.step import make_step
     from tpusph_torch.kernels import fused, probes, qrank
     from tpusph_torch.scripts import loop_probe as loop_script
-    from tpusph_torch.scripts import card_line, sass_loops, slope, timed, vpu_microbench
+    from tpusph_torch.scripts import (card_line, graph_ms, sass_loops, slope, timed,
+                                      vpu_microbench)
     from tpusph_torch.utils import cuda_build
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -733,6 +752,7 @@ def main() -> int:
         return torch.randint(0, 3, (count,), device=dev, generator=gen).float()
 
     probe_err = {"fma_probe": 0.0, "density_mix": 0.0, "loop_probe": 0.0}
+    loop_diff = {}  # variant -> max |new - first design| at R rounds
 
     def hold(name, got, want, rtol):
         torch.cuda.synchronize()
@@ -785,18 +805,30 @@ def main() -> int:
                             f"{rounds} rounds)")
     pt, bl, cap = 64, 256, loop_script.CAP
     t, cand = uniform((pt, 4), 1.0, 1.05), uniform((8, cap), 1.0, 1.05)
-    desc = loop_inputs(r, r)
-    for variant in probes.VARIANTS:
-        hold("loop_probe", probes.loop_probe(variant, desc, t, cand, pt, bl),
-             probes.loop_probe_plain(variant, desc, t, cand, pt, bl), 1e-5)
-    # The dynamic-trip variants run desc[rounds] blocks, not rounds.
-    desc = loop_inputs(r, r - 23)
-    for variant in ("V2", "V3", "V4", "V5"):
-        hold("loop_probe", probes.loop_probe(variant, desc, t, cand, pt, bl),
-             probes.loop_probe_plain(variant, desc, t, cand, pt, bl), 1e-5)
+    # The loop probe with its candidates staged in shared memory and, for a
+    # copy of cand 4 bytes off a 16-byte boundary, which it cannot stage,
+    # read from device memory. 67 rounds are no multiple of the rounds a loop
+    # iteration takes, 1 round runs the loop of single rounds alone; the
+    # dynamic-trip variants run desc[rounds] blocks, not rounds. The first
+    # design at the bar it was ported at.
+    cand_off = torch.empty(8 * cap + 1, device=dev)[1:].view(8, cap).copy_(cand)
+    require(probes.loop_stage_blocks("V3", cand, bl) > 0
+            and probes.loop_stage_blocks("V0", cand_off, bl) == 0,
+            "the loop probe's inputs do not reach both of its paths")
+    for rounds, trip in [(n, n) for n in LOOP_ROUNDS] + [(r, r - 23)]:
+        desc = loop_inputs(rounds, trip)
+        for variant in probes.VARIANTS if trip == rounds else ("V2", "V3", "V4", "V5"):
+            want = probes.loop_probe_plain(variant, desc, t, cand, pt, bl)
+            for c in (cand, cand_off):
+                hold("loop_probe", probes.loop_probe(variant, desc, t, c, pt, bl), want, 1e-5)
+            if rounds in probes.BASELINE_STATIC_ROUNDS:
+                got = probes.loop_probe_baseline(variant, desc, t, cand, pt, bl)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     print(f"probes at {r} rounds (dynamic trips also at desc[{r}] = {r - 23}; the density "
-          f"mix at {MIX_ROUNDS} rounds, bf16 bit for bit its first design) equal their "
-          f"plain versions; max|err| {probe_err}")
+          f"mix at {MIX_ROUNDS} rounds, bf16 bit for bit its first design; the loop probe "
+          f"at {LOOP_ROUNDS} rounds, staged and from device memory, its first design at "
+          f"{r}) equal their plain versions; max|err| {probe_err}")
 
     # At the entry points' round counts. f32 FMA on inputs where a fused and
     # a split multiply-add round alike: bit-equal, so every round must run
@@ -814,21 +846,30 @@ def main() -> int:
     for rounds in (loop_script.R, 4 * loop_script.R):
         desc = loop_inputs(rounds, rounds)
         for variant in probes.VARIANTS if rounds == loop_script.R else ("V0", "V1"):
-            err, shift = hold_sum(probes.loop_probe(variant, desc, t, cand, pt, bl),
-                                  probes.loop_probe_plain(variant, desc, t, cand, pt, bl),
-                                  rounds)
-            print(f"loop_probe {variant} at {rounds} rounds: max|err| {err:.3e}, mean "
-                  f"difference {shift:.3e} of a round's term")
+            got = probes.loop_probe(variant, desc, t, cand, pt, bl)
+            want = probes.loop_probe_plain(variant, desc, t, cand, pt, bl)
+            err, shift = hold_sum(got, want, rounds)
+            line = (f"loop_probe {variant} at {rounds} rounds: max|err| {err:.3e}, mean "
+                    f"difference {shift:.3e} of a round's term")
+            if rounds == loop_script.R:
+                first = probes.loop_probe_baseline(variant, desc, t, cand, pt, bl)
+                hold_sum(first, want, rounds)
+                loop_diff[variant] = float((got - first).abs().max())
+                line += f"; max |new - first design| {loop_diff[variant]:.3e}"
+            print(line)
 
     probe_fns = {"fma_probe": probes.fma_probe, "density_mix": probes.density_mix,
                  "loop_probe": probes.loop_probe}
     for fn in probe_fns.values():
         fn.launches = 0
+    probes.loop_probe.staged = 0
     rates = vpu_microbench.main()
     rates.update({("loop_probe", v): g for v, g in loop_script.main([]).items()})
     for name, fn in probe_fns.items():
         launches[name] = fn.launches
-    print(f"launches in the probe path: { {n: launches[n] for n in probe_fns} }")
+    print(f"launches in the probe path: { {n: launches[n] for n in probe_fns} }; the loop "
+          f"probe staged its candidates in shared memory in "
+          f"{probes.loop_probe.staged / max(launches['loop_probe'], 1):.4f} of its calls")
     for key, rate in rates.items():
         require(math.isfinite(rate) and rate > 0, f"probe rate {key} = {rate}")
     for name in probe_fns:
@@ -961,6 +1002,87 @@ def main() -> int:
               f"probe's best {best:.2f} Gpair-lanes/s): the kernel runs at "
               f"{row['mix_ceiling_ms'] / row['ms']:.4f} of the probe's rate; {card}")
 
+    # The loop probe against its first design, in turns: ms a call at R by
+    # CUDA events around the call (the wrapper's host time included) and the
+    # device's ms (10 calls in one CUDA graph).
+    loop = results["loop_probe"]
+    loop["rates"] = {v: rates[("loop_probe", v)] for v in probes.VARIANTS}
+    loop["max_abs_diff_baseline"] = loop_diff
+    loop["turns"] = {}
+    lp_big = torch.from_numpy(rng.uniform(1, 9, (128, 4)).astype(np.float32)).to(dev)
+    for tpt, variants in ((64, tuple(probes.VARIANTS)), (8, ("V3", "V5")), (128, ("V3", "V5"))):
+        for variant in variants:
+            fns = (probes.loop_probe_baseline, probes.loop_probe, probes.loop_probe,
+                   probes.loop_probe_baseline)
+            calls = [lambda fn=fn: fn(variant, lp_desc, lp_big, lp_c, tpt, 256) for fn in fns]
+            turns = [timed(call, 6) * 1e3 for call in calls]
+            device = [graph_ms(call, reps=5) for call in calls]
+            loop["turns"][f"{variant} pt {tpt}"] = dict(
+                ms=(turns[1] + turns[2]) / 2, baseline_ms=(turns[0] + turns[3]) / 2,
+                device_ms=(device[1] + device[2]) / 2,
+                baseline_device_ms=(device[0] + device[3]) / 2)
+            print(f"time loop_probe ({variant}, pt {tpt}, bl 256, {lp_r} rounds): first design, "
+                  f"new, new, first design {', '.join(f'{x:.4f}' for x in turns)} ms per call, "
+                  f"{', '.join(f'{x:.4f}' for x in device)} ms on the device; {card}")
+    # the row's own numbers: V3 at pt 64 from these turns
+    loop.update(loop["turns"]["V3 pt 64"])
+
+    # Its issue ceilings, from the SASS of the staged main loops of V0, V3 and
+    # V5 (the static trip at R, the two dynamic ones): a round's instructions
+    # on every scheduler, and each round's three candidate loads (LDS: the
+    # table is staged) inside the loop.
+    mangled = {"V0": f"ILb0ELb0ELi1ELb0ELi{lp_r}EE", "V3": "ILb1ELb1ELi1ELb0ELi0EE",
+               "V5": "ILb1ELb1ELi1ELb1ELi0EE"}
+    loop["issue_ceiling_ms"], loop["sass_instructions_per_round"] = {}, {}
+    for variant, args in mangled.items():
+        flight = probes.LOOP_UNROLL
+        loops = sass_loops(path, "loop_probe_kernel", args, load="LDS")
+        main_loops = [loop_ for loop_ in loops if loop_[1] == 3 * flight]
+        require(len(main_loops) == 1, f"loop_probe {variant}: no loop in the SASS holds the "
+                f"{3 * flight} LDS of {flight} rounds: (instructions, LDS) {loops}")
+        per_round = main_loops[0][0] / flight
+        ceiling_ms = per_round * 64 * 256 * lp_r / (sms * 4 * 32 * sm_mhz * 1e6) * 1e3
+        ceiling_rate = sms * 4 * 32 * sm_mhz * 1e6 / per_round / 1e9
+        turn = loop["turns"][f"{variant} pt 64"]
+        loop["issue_ceiling_ms"][variant] = ceiling_ms
+        loop["sass_instructions_per_round"][variant] = per_round
+        print(f"loop_probe {variant} SASS: loops (instructions, LDS) {loops}; the staged main "
+              f"loop takes {flight} rounds in {main_loops[0][0]} instructions = {per_round:.3f} "
+              f"a round with 3 loads a round inside it; issue ceiling at pt 64, bl 256, {lp_r} "
+              f"rounds {ceiling_ms:.4f} ms ({ceiling_rate:.2f} Gpair-lanes/s at {sm_mhz:.0f} MHz "
+              f"on {sms} SMs): the call ({turn['ms']:.4f} ms) reaches "
+              f"{ceiling_ms / turn['ms']:.4f} of it, its device time ({turn['device_ms']:.4f} "
+              f"ms) {ceiling_ms / turn['device_ms']:.4f}, the slope ({loop['rates'][variant]:.2f} "
+              f"Gpair-lanes/s) {loop['rates'][variant] / ceiling_rate:.4f}; the first design "
+              f"({turn['baseline_ms']:.4f} ms) {ceiling_ms / turn['baseline_ms']:.4f}; {card}")
+    loop["best_load_bytes_per_clock_per_sm"] = (
+        loop["rates"]["V3"] * 1e9 * 12 / (sms * sm_mhz * 1e6))
+    print(f"loop_probe V3 {loop['rates']['V3']:.2f} Gpair-lanes/s: its three 4-byte loads a "
+          f"pair-lane and round are {loop['best_load_bytes_per_clock_per_sm']:.2f} bytes a "
+          f"clock and SM from shared memory; {card}")
+
+    # The force kernel beside V5, the force's op mix. V5 does the whole force
+    # arithmetic for every pair-lane, while the kernel leaves a candidate
+    # beyond h after 9 operations, so the kernel may run above V5's rate (a
+    # share over 1 is no error); and V5 loads 3 values a pair where the kernel
+    # loads 5 more (rho, p, v) for a pair within h. The finer reading prices
+    # the pairs that take the force arithmetic at V5's rate and the others at
+    # V3's (the density term, about the 9 operations of a rejected pair).
+    v3, v5 = loop["rates"]["V3"], loop["rates"]["V5"]
+    for label, row in results["force"]["by_step"].items():
+        pairs, live = row["candidate_pairs"], row["force_pairs"]
+        row["force_mix_ms"] = pairs / (v5 * 1e9) * 1e3
+        row["force_mix_fine_ms"] = ((pairs - live) / (v3 * 1e9) + live / (v5 * 1e9)) * 1e3
+        print(f"force at step {label}: kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}), force_mix_ms {row['force_mix_ms']:.4f} ({pairs} "
+              f"candidate pairs at V5's {v5:.2f} Gpair-lanes/s, which does the whole force "
+              f"arithmetic and 3 loads for every pair; the kernel drops a pair beyond h after 9 "
+              f"operations and loads 5 more values for one within h): the kernel runs at "
+              f"{row['force_mix_ms'] / row['ms']:.4f} of V5's rate, which may exceed 1; finer, "
+              f"{live} force pairs at V5's rate and the other {pairs - live} at V3's "
+              f"{v3:.2f}: {row['force_mix_fine_ms']:.4f} ms, the kernel at "
+              f"{row['force_mix_fine_ms'] / row['ms']:.4f} of it; {card}")
+
     # ------------------------------------------------------ 7. free mode
     with tempfile.TemporaryDirectory() as tmp:
         frames_dir, ckpt = os.path.join(tmp, "frames"), os.path.join(tmp, "free.npz")
@@ -1011,7 +1133,8 @@ def main() -> int:
                               "share_of_bound", "launches_per_replay", "at")},
          **{k: r[k] for k in ("max_abs_diff_baseline", "by_step", "issue_ceiling_ms",
                               "sass_instructions_per_round", "sass_loads_per_round",
-                              "best_load_bytes_per_clock_per_sm")
+                              "best_load_bytes_per_clock_per_sm", "rates", "turns",
+                              "device_ms", "baseline_device_ms")
             if k in r}}
         for name, r in results.items()
     ]

@@ -21,7 +21,13 @@ f32 density mix and the loop probe rtol 1e-5 (FMA against separately
 rounded ops; rsqrtf); bf16 FMA and bf16 density mix bit-equal. At the
 entry points' round counts: the f32 FMA bit-equal on inputs where a fused
 and a split multiply-add round alike; the loop probe within rounds·eps
-and a mean difference under 1 % of one round's term. The copy of the
+and a mean difference under 1 % of one round's term. The loop probe
+(csrc/probes.cu) is also held on each path its inputs select: 67 rounds and
+1 round (its loop takes several rounds at once), a desc 2 bytes off a
+16-byte boundary, a cand of 512 lanes and one too wide to stage, pt 8 and
+128, columns off a 32-lane slice, and a cand off 16 bytes (device memory
+at the entry point's shape); its first design at the same bars, the two beside each other, and
+inside a replayed CUDA graph. The copy of the
 positions to the host equals a synchronous copy exactly."""
 
 import numpy as np
@@ -446,13 +452,116 @@ def test_dynamic_trip_reads_desc(dev, variant):
     assert not torch.allclose(full, probes.loop_probe(variant, *args), rtol=1e-2)
 
 
+def _loop_case(dev, case):
+    """(desc, t, cand, pt, bl) of one path of the loop probe's kernel, at
+    64 rounds unless the case is a round count."""
+    pt, bl, cap, rounds = 64, 256, 16384, 64
+    if case == "rounds67":  # no multiple of the rounds a loop iteration takes
+        rounds = 67
+    elif case == "rounds1":  # the loop of single rounds alone
+        rounds = 1
+    elif case == "cand512":  # a small table
+        cap = 512
+    elif case == "wide":  # 393 KB of table: read from device memory
+        cap = 131072
+    elif case == "pt8":
+        pt = 8
+    elif case == "pt128":
+        pt = 128
+    elif case == "pt5_bl40":  # columns off a 32-lane slice: nothing staged
+        pt, bl = 5, 40
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    t = torch.empty((max(pt, 8), 4), device=dev).uniform_(1.0, 1.05, generator=g)
+    cand = torch.empty(8 * cap + 1, device=dev).uniform_(1.0, 1.05, generator=g)
+    if case == "cand_off16":  # 4 bytes past a 16-byte boundary: device memory at this shape
+        cand = cand[1:].view(8, cap)
+        assert cand.data_ptr() % 16 == 4
+    else:
+        cand = cand[:-1].view(8, cap)
+    desc = torch.randint(0, (cap - bl) // 128 + 1, (rounds + 9,), device=dev, generator=g)
+    desc = desc.to(torch.int16)
+    if case == "desc_off16":  # 2 bytes past a 16-byte boundary: the loop of single rounds
+        desc = desc[1:]
+        assert desc.data_ptr() % 16 == 2
+    else:
+        desc = desc[:-1].clone()
+    desc[rounds] = rounds
+    return desc, t, cand, pt, bl
+
+
+@pytest.mark.parametrize("case", ["rounds67", "rounds1", "desc_off16", "cand512", "wide", "pt8",
+                                  "pt128", "pt5_bl40", "cand_off16"])
+@pytest.mark.parametrize("variant", list(probes.VARIANTS))
+def test_loop_probe_on_every_path(dev, variant, case):
+    """The new kernel against plain (rtol 1e-5, as at 64 rounds) on each
+    path its inputs select: the staged table and device memory, both loops,
+    a desc read by 16-byte loads and entry by entry."""
+    desc, t, cand, pt, bl = _loop_case(dev, case)
+    staged = probes.loop_stage_blocks(variant, cand, bl) > 0
+    dyn_load = probes.VARIANTS[variant][1]
+    assert staged == (case not in ("pt5_bl40", "cand_off16")
+                      and not (case == "wide" and dyn_load))
+    before = (probes.loop_probe.launches, probes.loop_probe.staged)
+    got = probes.loop_probe(variant, desc, t, cand, pt, bl)
+    assert (probes.loop_probe.launches, probes.loop_probe.staged) == (
+        before[0] + 1, before[1] + staged)
+    want = probes.loop_probe_plain(variant, desc, t, cand, pt, bl)
+    _same(got, want, 1e-5)
+    assert (want != 0).all() or (variant == "V4" and case == "rounds1")
+
+
+@pytest.mark.parametrize("rounds", [64, 4096])
+@pytest.mark.parametrize("variant", list(probes.VARIANTS))
+def test_loop_probe_baseline_equals_plain_and_new(dev, variant, rounds):
+    """The first design at the bars it was ported at, and the new kernel
+    beside it: both within rounds·eps of plain, so within twice that of each
+    other (they add the same terms in the same order and mostly agree bit
+    for bit)."""
+    args = _loop_inputs(dev, rounds, rounds, rounds + 1)
+    before = (probes.loop_probe.launches, probes.loop_probe_baseline.launches)
+    first = probes.loop_probe_baseline(variant, *args)
+    got = probes.loop_probe(variant, *args)
+    assert (probes.loop_probe.launches, probes.loop_probe_baseline.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = probes.loop_probe_plain(variant, *args)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if rounds <= 64 else rounds * torch.finfo(torch.float32).eps
+    torch.testing.assert_close(first, want, rtol=rtol, atol=0)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+    torch.testing.assert_close(got, first, rtol=2 * rtol, atol=0)
+    shift = float((first - want).mean()) / (float(want.mean()) / rounds)
+    assert abs(shift) < 0.01
+
+
+def test_loop_probe_in_a_replayed_graph_equals_eager(dev):
+    """The launch is capturable: no host read, no allocation besides out."""
+    args = _loop_inputs(dev, 64, 64, 9)
+    eager = probes.loop_probe("V3", *args)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        probes.loop_probe("V3", *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = probes.loop_probe("V3", *args)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 def test_static_trip_refuses_other_round_counts(dev):
     desc = torch.zeros(100 + 8, dtype=torch.int16, device=dev)
     t = torch.ones((8, 4), device=dev)
     cand = torch.ones((8, 512), device=dev)
     with pytest.raises(ValueError):
         probes.loop_probe("V0", desc, t, cand, 8, 256)
+    with pytest.raises(ValueError):
+        probes.loop_probe_baseline("V1", desc, t, cand, 8, 256)
     probes.loop_probe("V2", desc, t, cand, 8, 256)  # the trip count comes from desc
+    probes.loop_probe_baseline("V2", desc, t, cand, 8, 256)
 
 
 # ------------------------------------------- CUDA graphs of chained steps

@@ -16,10 +16,19 @@ The CUDA density mix takes several rounds at once and adds their terms in
 round order. What lets it do that is held here on the plain version: the
 sum over a + b rounds is the sum over a rounds continued by b ordered adds
 of one round's term (bf16 bit-equal, f32 too: the same adds in the same
-order)."""
+order).
+
+The CUDA loop probe walks one 32-lane slice of the columns at a time, reads
+its candidates from a table staged for that slice, and takes several rounds
+at once before a loop of single rounds. `probes.loop_probe_walk` is that
+walk in plain PyTorch and equals `loop_probe_plain` bit for bit (the same
+ops on the same values in the same order; the CPU fuses no multiply and
+add); the constants it shares with `csrc/probes.cu` are read from the
+source."""
 
 import importlib.util
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -221,6 +230,117 @@ def test_loop_probe_dynamic_trip_reads_the_table():
     np.testing.assert_allclose(half.numpy() * 2, full.numpy(), rtol=1e-6)
 
 
+def _loop_tensors(pt, bl, cap, rounds, trip, seed):
+    desc, t, cand = _loop_inputs(pt, bl, cap, rounds, seed)
+    desc[:rounds] = np.random.default_rng(seed + 1).integers(0, (cap - bl) // 128 + 1, rounds)
+    desc[rounds] = trip
+    return torch.from_numpy(desc), torch.from_numpy(t), torch.from_numpy(cand)
+
+
+@pytest.mark.parametrize("rounds,trip", [(1, 1), (64, 41), (64, 64), (67, 67)])
+@pytest.mark.parametrize("variant", list(probes.VARIANTS))
+def test_loop_probe_walk_equals_plain(variant, rounds, trip):
+    """The kernel's walk (slices of 32 lanes, the staged table or cand
+    itself, rounds taken several at once and added in round order, then one
+    by one) gives the plain version's bits: 1 round runs the single-round
+    loop alone, 64 the other alone, 41 of 64 and 67 both; desc reaches the
+    last block offset that fits."""
+    pt, bl, cap = 5, 64, 512
+    desc, t, cand = _loop_tensors(pt, bl, cap, rounds, trip, rounds)
+    want = probes.loop_probe_plain(variant, desc, t, cand, pt, bl)
+    # V4 takes its blocks two by two: none of 1, 40 of 41
+    assert (want != 0).all() or (variant == "V4" and trip == 1 and (want == 0).all())
+    assert probes.loop_stage_blocks(variant, cand, bl) == (4 if probes.VARIANTS[variant][1] else 1)
+    assert torch.equal(probes.loop_probe_walk(variant, desc, t, cand, pt, bl), want)
+    # a cand 4 bytes off a 16-byte boundary is not staged: the walk reads cand itself
+    off = torch.empty(8 * cap + 1)[1:].view(8, cap).copy_(cand)
+    assert probes.loop_stage_blocks(variant, off, bl) == 0
+    assert torch.equal(probes.loop_probe_walk(variant, desc, t, off, pt, bl), want)
+
+
+@pytest.mark.parametrize("targets", [2, 4])
+def test_loop_probe_walk_with_several_targets_a_thread(monkeypatch, targets):
+    """Targets that share a thread share its loads, and each keeps its own
+    sum: the same bits for any group size, a last group short of it too."""
+    monkeypatch.setattr(probes, "LOOP_TARGETS", targets)
+    pt, bl, cap = 5, 64, 512
+    desc, t, cand = _loop_tensors(pt, bl, cap, 67, 67, 3)
+    for variant in ("V3", "V4", "V5"):
+        assert torch.equal(probes.loop_probe_walk(variant, desc, t, cand, pt, bl),
+                           probes.loop_probe_plain(variant, desc, t, cand, pt, bl))
+
+
+def test_loop_probe_walk_takes_columns_off_a_slice():
+    """bl = 40 is no multiple of 32: nothing is staged and the last slice
+    is 8 lanes wide."""
+    pt, bl, cap = 3, 40, 512
+    desc, t, cand = _loop_tensors(pt, bl, cap, 20, 20, 4)
+    assert probes.loop_stage_blocks("V3", cand, bl) == 0
+    assert torch.equal(probes.loop_probe_walk("V3", desc, t, cand, pt, bl),
+                       probes.loop_probe_plain("V3", desc, t, cand, pt, bl))
+
+
+def test_loop_stage_blocks():
+    """What the kernel stages: every block offset that fits (cap − bl) / 128
+    + 1 for the desc-driven loads, offset 0 alone for the static ones, and
+    nothing where the copies would split 16 bytes or outgrow a block's
+    shared memory."""
+    cand = torch.zeros(8, 16384)
+    assert probes.loop_stage_blocks("V3", cand, 256) == 127
+    assert 3 * 127 * 128 <= 48 * 1024  # no more than a kernel may take unasked
+    assert [probes.loop_stage_blocks(v, cand, 256) for v in probes.VARIANTS] == [
+        1, 127, 1, 127, 127, 127]
+    assert probes.loop_stage_blocks("V3", torch.zeros(8, 512), 256) == 3
+    assert probes.loop_stage_blocks("V3", torch.zeros(8, 256), 256) == 1
+    assert probes.loop_stage_blocks("V3", cand, 40) == 0  # columns off a slice
+    assert probes.loop_stage_blocks("V3", torch.zeros(8, 510), 256) == 0  # rows off 16 bytes
+    off = torch.zeros(8 * 512 + 1)[1:].view(8, 512)
+    assert off.data_ptr() % 16 == 4 and probes.loop_stage_blocks("V3", off, 256) == 0
+    wide = torch.zeros(8, 131072)
+    assert probes.loop_stage_blocks("V3", wide, 256) == 0  # 393 KB of table
+    assert probes.loop_stage_blocks("V0", wide, 256) == 1
+    widest = (probes.LOOP_STAGE_MAX // 384 - 1) * 128 + 256
+    assert probes.loop_stage_blocks("V3", torch.zeros(8, widest), 256) == probes.LOOP_STAGE_MAX // 384
+    assert probes.loop_stage_blocks("V3", torch.zeros(8, widest + 128), 256) == 0
+
+
+def test_loop_probe_constants_mirror_the_source():
+    """probes.LOOP_* and the static trip counts are those of the CUDA
+    sources."""
+    csrc = os.path.join(REPO, "tpusph_torch", "csrc")
+    with open(os.path.join(csrc, "probes.cu")) as f:
+        src = f.read()
+    names = {"kLoopUnroll": probes.LOOP_UNROLL, "kLoopWarps": probes.LOOP_WARPS, "kLoopTargets": probes.LOOP_TARGETS,
+             "kLoopStageMax": probes.LOOP_STAGE_MAX}
+    for name, value in names.items():
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert found == [str(value)], name
+    assert probes.LOOP_UNROLL % 8 == 0
+    assert probes.LOOP_STAGE_MAX == 227 * 1024  # what a block may take on the H100
+
+    def cases(text, fn):
+        body = text[text.index(f"cudaError_t {fn}("):]
+        body = body[:body.index("default:")]
+        return tuple(int(n) for n in re.findall(r"case (\d+):", body))
+
+    assert cases(src, "launch_static_trip") == probes.STATIC_ROUNDS
+    with open(os.path.join(csrc, "sph_baseline.cu")) as f:
+        assert cases(f.read(), "launch_static_trip_baseline") == probes.BASELINE_STATIC_ROUNDS
+    assert set(probes.BASELINE_STATIC_ROUNDS) <= set(probes.STATIC_ROUNDS)
+
+
+def test_loop_probe_baseline_takes_the_plain_version_on_the_cpu():
+    desc, t, cand = _loop_tensors(8, 256, 512, 5, 5, 0)
+    before = (probes.loop_probe.launches, probes.loop_probe.staged,
+              probes.loop_probe_baseline.launches)
+    for variant in probes.VARIANTS:  # no static trip count to refuse on the CPU
+        want = probes.loop_probe_plain(variant, desc, t, cand, 8, 256)
+        assert torch.equal(probes.loop_probe_baseline(variant, desc, t, cand, 8, 256), want)
+        assert torch.equal(probes.loop_probe(variant, desc, t, cand, 8, 256), want)
+    assert (probes.loop_probe.launches, probes.loop_probe.staged,
+            probes.loop_probe_baseline.launches) == before
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -234,9 +354,13 @@ def test_loop_probe_dynamic_trip_reads_the_table():
                                   torch.ones(8, 4), torch.ones(8, 256), 8, 256),
         lambda: probes.loop_probe("V0", torch.zeros(12, dtype=torch.int16),
                                   torch.ones(8, 4), torch.ones(8, 128), 8, 256),
+        lambda: probes.loop_probe_baseline("V9", torch.zeros(12, dtype=torch.int16),
+                                           torch.ones(8, 4), torch.ones(8, 256), 8, 256),
+        lambda: probes.loop_probe_baseline("V3", torch.zeros(4, dtype=torch.int16),
+                                           torch.ones(8, 4), torch.ones(8, 256), 8, 256),
     ],
     ids=["fma-dtype", "fma-streams", "mix-rows", "mix-mixed-dtypes", "loop-variant",
-         "loop-desc-dtype", "loop-narrow-cand"],
+         "loop-desc-dtype", "loop-narrow-cand", "baseline-variant", "baseline-short-desc"],
 )
 def test_probe_wrappers_reject_bad_inputs(call):
     with pytest.raises((TypeError, ValueError)):

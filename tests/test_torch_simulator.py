@@ -27,6 +27,7 @@ from tpusph_torch.bench.times import Times
 from tpusph_torch.core.config import default_config as tdefault
 from tpusph_torch.core.state import FIELDS, state_from_numpy
 from tpusph_torch.engine.simulator import Simulator
+from tpusph_torch.engine.step import make_step
 from tpusph_torch.interact import impulse as timp
 from tpusph_torch.viz import render
 
@@ -197,6 +198,69 @@ def test_free_mode_frames_match_tpusph_frames(tmp_path, monkeypatch):
     for k in range(3):
         js.simulate(click=CLICK_ON_FLUID if k == 1 else None)
         np.testing.assert_array_equal(frames[k], _render_frame_numpy(js.get_position()))
+
+
+def test_free_mode_sync_gives_the_same_frames(tmp_path, monkeypatch):
+    """TPUSPH_VIZ_SYNC=1 (tpusph/viz/render.py:254-256) fetches each frame
+    before the next step is dispatched: the same PNG files, byte for byte,
+    as the double-buffered loop, and every fetch waited for before the next
+    step."""
+    def dump(folder, sync):
+        if sync:
+            monkeypatch.setenv("TPUSPH_VIZ_SYNC", "1")
+        else:
+            monkeypatch.delenv("TPUSPH_VIZ_SYNC", raising=False)
+        _, ts = _pair()
+        events = []
+        simulate, fetch_async = ts.simulate, ts.get_position_async
+
+        def traced_simulate(**kw):
+            events.append("step")
+            return simulate(**kw)
+
+        def traced_fetch():
+            fetch = fetch_async()
+            wait = fetch.wait
+            fetch.wait = lambda: (events.append("wait"), wait())[1]
+            return fetch
+
+        ts.simulate, ts.get_position_async = traced_simulate, traced_fetch
+        render.run_free_mode(ts, frames=4, out_dir=str(folder), clicks={1: CLICK_ON_FLUID})
+        files = sorted(os.listdir(folder))
+        return events, {name: (folder / name).read_bytes() for name in files}
+
+    events, overlapped = dump(tmp_path / "overlapped", sync=False)
+    assert events == ["step", "step", "wait", "step", "wait", "step", "wait", "wait"]
+    events, fetched = dump(tmp_path / "sync", sync=True)
+    assert events == ["step", "wait"] * 4
+    assert sorted(fetched) == [f"frame_{k:05d}.png" for k in range(4)]
+    assert fetched == overlapped
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_simulator_takes_tpusph_backend_names(backend):
+    """tpusph's `auto` (its default) and `pallas` are the port's `kernels`,
+    for single steps, timed steps and chunks alike."""
+    sims = {}
+    for name in (backend, "kernels"):
+        sim = Simulator(tdefault(N), backend=name, device="cpu")
+        sim.setup()
+        sim.simulate()
+        sim.simulate_and_time(Times())
+        sims[name] = (sim, sim.simulate_chunk(2))
+    assert sims[backend][0].backend == "kernels"
+    for a, b in zip(sims[backend][1], sims["kernels"][1]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(sims[backend][0].get_position(), sims["kernels"][0].get_position())
+
+
+def test_unknown_backend_lists_the_names():
+    with pytest.raises(ValueError) as err:
+        Simulator(tdefault(N), backend="mosaic", device="cpu")
+    for name in ("allpairs", "auto", "cell_list", "kernels", "pallas"):
+        assert name in str(err.value)
+    with pytest.raises(ValueError, match="cell_list"):
+        make_step(tdefault(N), "mosaic", "cpu")
 
 
 def test_free_mode_refuses_what_is_not_ported():

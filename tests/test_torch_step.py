@@ -119,19 +119,46 @@ def test_allpairs_matches_jax_and_kernels(kind, n):
     np.testing.assert_allclose(got["density"][v], kern["density"][v], rtol=1e-5)
 
 
-def test_golden_grid_trajectory():
-    """tests/golden/traj_grid256_15.npz at test_golden.py's bar."""
-    cfg = tdefault(256, chunk_size=256)
-    step = make_step(cfg, "kernels", "cpu")
-    st = tinit_state(cfg, device="cpu")
+def _golden_start(init):
+    """The golden's initial state: the port's grid init, or tpusph's random
+    init at seed 42 carried over (the two packages draw other numbers from
+    one seed)."""
+    if init == "grid":
+        return tinit_state(tdefault(256, chunk_size=256), device="cpu")
+    st = jinit_state(jdefault(256, chunk_size=256), random_init=True, seed=42)
+    return state_from_numpy({f: np.array(getattr(st, f)) for f in FIELDS}, "cpu")
+
+
+def _check_golden(name, init, backend):
+    """15 steps against tests/golden/<name> at test_golden.py's bar."""
+    step = make_step(tdefault(256, chunk_size=256), backend, "cpu")
+    st = _golden_start(init)
     for _ in range(15):
         st, _ = step(st)
     v = st.valid
-    with np.load(os.path.join(GOLDEN, "traj_grid256_15.npz")) as ref:
+    with np.load(os.path.join(GOLDEN, name)) as ref:
         for k in ("position", "velocity", "density"):
             np.testing.assert_allclose(
                 getattr(st, k)[v].numpy(), ref[k], rtol=1e-5, atol=1e-6,
-                err_msg=f"golden mismatch in {k}")
+                err_msg=f"golden mismatch in {k} ({name}, {backend})")
+
+
+def test_golden_grid_trajectory():
+    """tests/golden/traj_grid256_15.npz at test_golden.py's bar."""
+    _check_golden("traj_grid256_15.npz", "grid", "kernels")
+
+
+@pytest.mark.parametrize("backend", ["kernels", "cell_list", "allpairs"])
+@pytest.mark.parametrize("name,init", [
+    ("traj_grid256_15.npz", "grid"),
+    ("traj_rand256_15.npz", "random"),
+    ("traj_rand256_15_pallas.npz", "random"),
+], ids=["grid", "rand", "rand_pallas"])
+def test_golden_trajectories(name, init, backend):
+    """All three goldens of tests/golden (tpusph's cell_list on grid and
+    random init, its Pallas kernels on random init) hold for every backend
+    of the port at rtol 1e-5 / atol 1e-6."""
+    _check_golden(name, init, backend)
 
 
 def test_simulator_simulate_and_time_cpu():
@@ -166,6 +193,55 @@ def test_cli_refuses_unported_modes(args, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("args,rc", [
+    (["--stencil", "slab3"], 1),
+    (["--pallas-col-capacity", "16384"], 1),
+    (["--pallas-sub-blocks", "80"], 1),
+    (["--window-capacity", "256"], 1),
+    (["--gif", "out.gif"], 1),
+    (["--mesh", "2x2x2"], 2),
+    (["-m", "free"], 2),
+], ids=["stencil", "col_capacity", "sub_blocks", "window_capacity", "gif", "mesh", "window"])
+def test_cli_refuses_tpusph_flags_it_does_not_take(args, rc, capsys):
+    """The flags of tpusph/cli.py that the port's docstring lists as not
+    taken: argparse rejects the Pallas sizing flags and --gif (usage text,
+    exit code 1); --mesh and the interactive window are parsed and refused
+    with exit code 2. Nothing is simulated either way."""
+    assert cli.main(["-n", "256", "--device", "cpu", "--steps", "1", *args]) == rc
+    captured = capsys.readouterr()
+    if rc == 1:
+        assert "Program Options" in captured.out
+    else:
+        assert "not yet ported" in captured.err
+    for flag in args[:1]:
+        if flag.startswith("--"):
+            assert flag in cli.__doc__
+
+
+def test_cli_profile_writes_a_trace(tmp_path, capsys):
+    """`--profile DIR` (tpusph/cli.py:95-101) wraps the timed steps in
+    torch.profiler and leaves a Chrome trace in DIR."""
+    import json
+
+    out = tmp_path / "prof"
+    rc = cli.main(["-n", "256", "-m", "time", "--steps", "3", "--device", "cpu",
+                   "--profile", str(out)])
+    assert rc == 0, capsys.readouterr().err
+    files = os.listdir(out)
+    assert files == ["trace.json"]
+    with open(out / "trace.json") as f:
+        trace = json.load(f)
+    assert len(trace["traceEvents"]) > 0
+    assert "Grid construction" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_cli_takes_tpusph_backend_names(backend, capsys):
+    rc = cli.main(["-n", "256", "-m", "time", "--steps", "1", "--warmup", "0",
+                   "--device", "cpu", "--backend", backend])
+    assert rc == 0, capsys.readouterr().err
+
+
 def test_cli_usage(capsys):
     assert cli.main(["-?"]) == 1
     assert "Number of particles to simulate" in capsys.readouterr().out
@@ -177,6 +253,7 @@ def test_port_never_imports_jax():
         "import sys, tpusph_torch, tpusph_torch.cli, tpusph_torch.core.io, "
         "tpusph_torch.utils.cuda_build, tpusph_torch.kernels.probes, "
         "tpusph_torch.scripts.vpu_microbench, tpusph_torch.scripts.loop_probe, "
+        "tpusph_torch.scripts.loop_probe_sweep, tpusph_torch.scripts.chain_turns, "
         "tpusph_torch.interact.impulse, tpusph_torch.viz.render, "
         "tpusph_torch.viz.project, tpusph_torch.engine.graphs, tpusph_torch.engine.step, "
         "tpusph_torch.engine.simulator, tpusph_torch.neighbors.cell_list, "

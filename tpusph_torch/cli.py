@@ -9,16 +9,25 @@ the Times table. Free mode is the headless frame dump of `--frames N`
 `--save PATH` checkpoints the final state and `--load PATH` resumes one,
 in the `.npz` format both packages read. Extra flags: --steps, --warmup,
 --seed, --device (default cuda), --backend (kernels, the default, also
-under tpusph's names auto and pallas, so tpusph's command lines run
-unchanged; cell_list; allpairs) and --viz-chunk (free mode: steps per
-dispatch). --mesh is not ported yet and exits with an error; tpusph's
---window-capacity is not taken, because it sizes the Pallas window prep,
-which the port's kernels do without.
+under tpusph's names auto and pallas; cell_list; allpairs), --viz-chunk
+(free mode: steps per dispatch) and --profile DIR (timed mode: a
+`torch.profiler` Chrome trace of the timed steps in DIR).
+
+Not every tpusph command line runs here. Flags of `tpusph/cli.py` that are
+not taken (argparse rejects them: the usage text, exit code 1):
+--stencil, --pallas-col-capacity, --pallas-sub-blocks and --window-capacity
+size the Pallas kernels' stencil decomposition, candidate buffers and window
+prep, which the CUDA kernels do without (they walk each window to its end);
+--gif waits for the GIF assembly of the free-mode module. --mesh is parsed
+and exits with code 2 until the sharded engine is ported, as `-m free`
+without `--frames` does until the interactive window is.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 NOT_PORTED = "not yet ported to tpusph_torch"
@@ -77,6 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="resume from a checkpoint written by --save of either package "
         "(restores N and the physics config; -n/-i are ignored with a note)",
     )
+    p.add_argument(
+        "--profile", type=str, default=None, metavar="DIR",
+        help="timed mode: write a torch.profiler Chrome trace of the timed steps to DIR",
+    )
     p.add_argument("--mesh", type=str, default=None, help=NOT_PORTED)
     return p
 
@@ -89,6 +102,27 @@ def parse_clicks(specs: list[str] | None) -> dict[int, tuple[int, int]]:
         x, y = xy.split(",")
         clicks[int(frame)] = (int(x), int(y))
     return clicks
+
+
+@contextlib.contextmanager
+def profile_to(trace_dir: str | None, device):
+    """Trace the body with `torch.profiler` (CPU activity, and CUDA activity
+    when `device` is a card) and write `trace_dir/trace.json`, a Chrome
+    trace; no trace_dir, no profiler."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(trace_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"wrote profiler trace: {path}", file=sys.stderr)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -139,9 +173,8 @@ def main(argv: list[str] | None = None) -> int:
             )
             random_init = True
 
-    backend = "kernels" if args.backend in ("auto", "pallas") else args.backend
     sim = Simulator(
-        cfg, backend=backend, random_init=random_init, seed=args.seed, device=args.device
+        cfg, backend=args.backend, random_init=random_init, seed=args.seed, device=args.device
     )
     sim.setup(loaded_state)
 
@@ -152,8 +185,9 @@ def main(argv: list[str] | None = None) -> int:
         for _ in range(args.warmup):
             sim.simulate_and_time(warm)
         times = Times()
-        for _ in range(args.steps):
-            sim.simulate_and_time(times)
+        with profile_to(args.profile, sim.device):
+            for _ in range(args.steps):
+                sim.simulate_and_time(times)
         display_times(times)
     else:
         from tpusph_torch.viz.render import run_free_mode

@@ -17,14 +17,18 @@
 // one integer add per round on the integer pipe. The TPU kernel's
 // `i * 0.0` term is kept as it is. No fast-math flag is used.
 //
-// What bounds them on the H100: nothing but issue and latency. The FMA
-// probe's chains are dependent, so `streams` sets the instruction-level
-// parallelism against the FMA latency; the other two issue ~20-30
-// instructions per pair-lane per round from registers and L1.
+// What bounds them on the H100: the FMA probe's chains are dependent, so
+// `streams` sets the instruction-level parallelism against the FMA latency.
+// The density mix sits on the SM's load path (its note below). The loop
+// probe sits on one warp's issue: its candidates come from shared memory
+// and pt 64 x bl 256 is one warp for each of the card's schedulers, which
+// issues about two thirds of what the scheduler could take (its note
+// below).
 //
 // Threads: one per output element (two per thread for the packed bf16
-// FMA). The FMA and loop probes launch blocks of 128 so that a small block
-// spreads over many SMs; the density mix has its own launch shape, below.
+// FMA). The FMA probe launches blocks of 128 so that a small block spreads
+// over many SMs; the density mix and the loop probe have their own launch
+// shapes, below.
 
 #include <cuda_bf16.h>
 
@@ -185,112 +189,346 @@ __global__ void __launch_bounds__(kMixBlock)
 }
 
 // ------------------------------------------------------- loop-overhead probe
-// loop_probe.py:54-127. Each thread owns one element (p, l) of the (pt, bl)
-// output and walks the candidate blocks b = 0 .. n-1: it loads
-// cand[0..2][off_b + l] and accumulates the density op mix, or the force op
-// mix (V5: rsqrt, r >= eps, three accumulators summed at the end).
+// loop_probe.py:54-127. For each of the (pt, bl) pair-lanes, over candidate
+// blocks b = 0 .. n-1: load cand[0..2][off_b + l] and add the density term
+// max(h^2 - r^2, 0)^3, or the force op mix (V5: rsqrt, r >= eps, three
+// sums added at the end).
 //   kDynTrip: n = desc[rounds], read from the table (the TPU's SMEM scalar);
 //             otherwise n = kRounds, a compile-time constant.
-//   kDynLoad: off_b = desc[b] * 128; otherwise off_b = 0.
-//   kUnroll:  blocks per loop iteration (V4: 2).
-// desc is the TPU's scalar-prefetch table (int16, rounds + 8 entries). All
-// threads read the same entry at the same time, so it is read with a
-// uniform __ldg: one broadcast load through L1 per warp.
+//   kDynLoad: off_b = desc[b] * 128; otherwise off_b = 0 (indexed `b * zero`).
+//   kPair:    blocks per iteration of the script's loop (V4: 2, so an odd
+//             last block is not taken).
+// desc is the TPU's scalar-prefetch table (int16, rounds + 8 entries).
+//
+// The first design (sph_baseline.cu) gave each pair-lane a thread in blocks
+// of 128 and took the rounds one by one: a 2-byte load of the desc entry,
+// then the three candidate loads whose address needs it, then the
+// arithmetic, about 160 clocks a round for some 20 instructions, with one
+// warp on each of the card's schedulers. What this design does about it:
+//   * Rounds in flight. The main loop takes kLoopUnroll = 32 rounds: it
+//     reads their desc entries, issues their 3 x 32 candidate loads,
+//     computes the 32 terms, which do not depend on each other, and adds
+//     them in round order into the pair-lane's one sum (three for the
+//     force), so the order of the adds is the first design's and so are the
+//     bits. A second loop takes the n % 32 rounds left (V4: two an
+//     iteration).
+//   * Registers for them. `__launch_bounds__(threads, kLoopResident)`:
+//     without its second argument ptxas keeps these kernels within 64
+//     registers and interleaves loads and arithmetic to fit, and with one
+//     warp a scheduler every wait of that schedule shows: the same source
+//     then ran V5 in 0.115-0.146 ms depending on incidental code shape.
+//     Told that an SM holds kLoopResident = 4 blocks (four tables of 48 KB),
+//     it takes up to 161 registers and the times settle.
+//   * The table by 16-byte loads, a loop iteration ahead. 32 int16 entries
+//     are 4 loads of 16 bytes at an address every thread shares; the next
+//     iteration's are loaded, without a branch, at the head of this one, so
+//     no candidate load waits for a table load (the last iteration loads its
+//     own again). They never leave the tensor (an iteration's entries lie
+//     below n <= rounds). A desc off a 16-byte boundary is read entry by
+//     entry, by the loop of single rounds.
+//   * The candidates on chip, as on the TPU, where the whole table is a
+//     VMEM block. A warp owns 32 lanes l, so of cand's rows 0-2 it reads
+//     only the 32 floats at d * 128 + slice * 32 of each block offset d: a
+//     block copies those (3 x D x 128 bytes, D = (cap - bl) / 128 + 1; 48 KB
+//     at cap 16,384) into shared memory once by 16-byte cp.async and reads
+//     d * 32 + lane there, consecutive lanes on consecutive banks. Where bl
+//     is no multiple of 32, cand is off 16 bytes, cap no multiple of 4 or
+//     the table larger than kLoopStageMax, the caller passes stage_d = 0 and
+//     the same loop reads device memory through L1 (`loop_walk<.., false>`).
+//   * Blocks of kLoopWarps = 2 warps on one 32-lane slice and two targets
+//     share one table: 256 blocks at pt 64, 512 at pt 128, four an SM, all
+//     resident, with 255 registers a thread to take.
+//   * kLoopTargets = 1 target a thread; more would share each candidate's
+//     loads, every pair-lane keeping its own sum in round order.
+// Every round keeps its own three loads and its own arithmetic: the static
+// variants index with `b * zero`, in shared memory as in device memory.
+//
+// Why these values (H100 80GB HBM3 at 700 W, bl 256, 4,096 rounds, device ms
+// of a call at pt 64 unless said; `python -m
+// tpusph_torch.scripts.loop_probe_sweep`, PERF.md). The staged table is what
+// the entry point reports: faster than device memory on every variant by
+// the script's slope and per call, copy included (V3 0.067 against 0.100
+// ms, V5 0.099 against 0.135). Rounds in flight 8 / 16 / 32: V3 0.086 / 0.073
+// / 0.067, V1 0.089 / 0.070 / 0.065; V5 0.126 / 0.100 / 0.099. Blocks of 1, 2
+// or 4 warps run V0-V4 alike at pt 8 and 64 (within 5 %), but four warps a
+// block leave a thread 128 registers and V5 0.119 ms, and at pt 128 one-warp
+// blocks of 48 KB run in two waves (V3 0.131 against 0.100 ms). Two or four
+// targets a thread lose at pt 64 (V3 0.105 and 0.124 ms: half and a quarter
+// of the warps for the same schedulers) and at pt 8; at pt 128 two are no
+// better on V3 (0.106 against 0.100) and better on V0 and V5. The SASS of
+// the staged main loops holds each round's 3 LDS; by the slope the kernel
+// issues 0.60-0.75 of a round's instructions on every scheduler
+// (chip_smoke.py prints the counts). What is left is one warp's issue, not
+// the load path (V3 moves 49 bytes a clock and SM out of shared memory): at
+// pt 128, two warps a scheduler, V3 passes 1,430 Gpair-lanes/s against
+// 1,080 at pt 64. A pair-lane's rounds are never split across threads, so
+// pt 8 (64 warps) leaves seven of eight schedulers idle and takes as long
+// as pt 64.
 
-template <bool kDynTrip, bool kDynLoad, int kUnroll, bool kForce, int kRounds>
-__global__ void __launch_bounds__(kProbeBlock)
-    loop_probe_kernel(const short* __restrict__ desc, const float* __restrict__ t,
-                      const float* __restrict__ cand, int cap, int pt, int bl,
-                      int rounds, int zero, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= pt * bl) return;
-  const int p = i / bl;
-  const int l = i - p * bl;
-  const float tx = t[4 * p];
-  const float ty = t[4 * p + 1];
-  const float tz = t[4 * p + 2];
+constexpr int kLoopUnroll = 32;    // rounds in flight a thread
+constexpr int kLoopWarps = 2;      // warps a block
+constexpr int kLoopTargets = 1;    // targets a thread
+constexpr int kLoopResident = 4;   // blocks an SM is to hold: four tables of 48 KB
+constexpr int kLoopStageMax = 232448;  // bytes of shared memory a block may stage
+
+static_assert(kLoopUnroll % 8 == 0, "a loop iteration reads its desc entries in 16-byte loads");
+
+__device__ __forceinline__ void loop_copy16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void loop_copy_wait() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// U consecutive desc entries, two to a word.
+template <int U>
+struct DescBlock {
+  int w[U / 2];
+  __device__ __forceinline__ int at(int u) const {
+    return (u & 1) ? (w[u >> 1] >> 16) : static_cast<int>(static_cast<short>(w[u >> 1]));
+  }
+};
+
+// desc on 16 bytes and b a multiple of 8: U / 8 loads of 16 bytes.
+template <int U>
+__device__ __forceinline__ DescBlock<U> load_desc(const short* __restrict__ desc, int b) {
+  DescBlock<U> d;
+  const int4* __restrict__ src = reinterpret_cast<const int4*>(desc + b);
+#pragma unroll
+  for (int q = 0; q < U / 8; ++q) {
+    const int4 v = __ldg(src + q);
+    d.w[4 * q] = v.x;
+    d.w[4 * q + 1] = v.y;
+    d.w[4 * q + 2] = v.z;
+    d.w[4 * q + 3] = v.w;
+  }
+  return d;
+}
+
+// One thread's walk over the blocks, from the staged table (kStaged: `src`
+// is the block's table at this lane, rows `row` = D * 32 floats apart, block
+// offset d at d * 32) or from device memory (`src` is cand + l, rows `row` =
+// cap apart, block offset d at d * 128).
+template <bool kDynTrip, bool kDynLoad, int kPair, bool kForce, int kRounds, bool kStaged>
+__device__ __forceinline__ void loop_walk(const short* __restrict__ desc,
+                                          const float* __restrict__ t,
+                                          const float* __restrict__ src, int row, int pt,
+                                          int bl, int p0, int l, int rounds, int zero,
+                                          float* __restrict__ out) {
+  constexpr int U = kLoopUnroll;
+  constexpr int K = kLoopTargets;
+  constexpr int kStep = kStaged ? 32 : 128;
   const float h2 = 0.01f;
   const float h = 0.1f;
   const float eps = 1e-4f;
-  const int n = kDynTrip ? static_cast<int>(__ldg(desc + rounds)) : kRounds;
-  float ax = 0.0f;
-  float ay = 0.0f;
-  float az = 0.0f;
+  float tx[K], ty[K], tz[K];
+  float ax[K], ay[K], az[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = min(p0 + k, pt - 1);  // a last group short of K repeats its last target
+    tx[k] = t[4 * p];
+    ty[k] = t[4 * p + 1];
+    tz[k] = t[4 * p + 2];
+    ax[k] = 0.0f;
+    ay[k] = 0.0f;
+    az[k] = 0.0f;
+  }
+  const int trip = kDynTrip ? static_cast<int>(__ldg(desc + rounds)) : kRounds;
+  const int n = trip - trip % kPair;
 
-  auto one = [&](int b) {
-    const int off = (kDynLoad ? static_cast<int>(__ldg(desc + b)) * 128 : b * zero) + l;
-    const float cx = __ldg(cand + off);
-    const float cy = __ldg(cand + cap + off);
-    const float cz = __ldg(cand + 2 * cap + off);
-    const float dx = tx - cx;
-    const float dy = ty - cy;
-    const float dz = tz - cz;
-    const float r2 = dx * dx + dy * dy + dz * dz;
+  auto load = [&](int off) {
+    if constexpr (kStaged) {
+      return src[off];
+    } else {
+      return __ldg(src + off);
+    }
+  };
+  // What one round adds for target k, computed from its loaded candidate ...
+  struct Term {
+    float a, b, dx, dy, dz;  // density: w, w^2; force: s_p, s_v and the displacement
+  };
+  auto term = [&](int k, float cx, float cy, float cz) {
+    Term m;
+    m.dx = tx[k] - cx;
+    m.dy = ty[k] - cy;
+    m.dz = tz[k] - cz;
+    const float r2 = m.dx * m.dx + m.dy * m.dy + m.dz * m.dz;
     if constexpr (kForce) {
       const float inv_r = rsqrtf(r2);
       const float r = r2 * inv_r;
       const bool live = r >= eps;
       const float hr = fmaxf(h - r, 0.0f);
-      const float s_p = live ? hr * hr * inv_r : 0.0f;
-      ax = ax + s_p * dx;
-      ay = ay + s_p * dy;
-      az = az + s_p * dz;
-      const float s_v = live ? hr : 0.0f;
-      ax = ax + s_v * cx;
-      ay = ay + s_v * cy;
-      az = az + s_v * cz;
+      m.a = live ? hr * hr * inv_r : 0.0f;
+      m.b = live ? hr : 0.0f;
     } else {
-      const float w = fmaxf(h2 - r2, 0.0f);
-      ax = ax + w * w * w;
+      m.a = fmaxf(h2 - r2, 0.0f);
+      m.b = m.a * m.a;
+    }
+    return m;
+  };
+  // ... and the adds, which run in round order.
+  auto add = [&](int k, const Term& m, float cx, float cy, float cz) {
+    if constexpr (kForce) {
+      ax[k] = ax[k] + m.a * m.dx;
+      ay[k] = ay[k] + m.a * m.dy;
+      az[k] = az[k] + m.a * m.dz;
+      ax[k] = ax[k] + m.b * cx;
+      ay[k] = ay[k] + m.b * cy;
+      az[k] = az[k] + m.b * cz;
+    } else {
+      ax[k] = ax[k] + m.b * m.a;
     }
   };
 
-  for (int b = 0; b < n / kUnroll; ++b) {
-    if constexpr (kUnroll == 1) {
-      one(b);
-    } else {
-      one(2 * b);
-      one(2 * b + 1);
+  int b = 0;
+  // A desc off a 16-byte boundary leaves every round to the loop below.
+  if (n >= U && (!kDynLoad || (reinterpret_cast<size_t>(desc) & 15) == 0)) {
+    DescBlock<U> cur = {};
+    if constexpr (kDynLoad) cur = load_desc<U>(desc, 0);
+    for (; b + U <= n; b += U) {
+      DescBlock<U> next = cur;
+      if constexpr (kDynLoad) {  // no branch: the loads stay at the head of the iteration
+        // the next iteration's entries; the last iteration loads its own again
+        next = load_desc<U>(desc, b + 2 * U <= n ? b + U : b);
+      }
+      float cx[U], cy[U], cz[U];
+      Term m[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int off = kDynLoad ? cur.at(u) * kStep : (b + u) * zero;
+        cx[u] = load(off);
+        cy[u] = load(row + off);
+        cz[u] = load(2 * row + off);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) m[u][k] = term(k, cx[u], cy[u], cz[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) add(k, m[u][k], cx[u], cy[u], cz[u]);
+      }
+      cur = next;
     }
   }
-  out[i] = kForce ? ax + ay + az : ax;
+#pragma unroll 1
+  for (; b < n; b += kPair) {
+#pragma unroll
+    for (int j = 0; j < kPair; ++j) {
+      const int off = kDynLoad ? static_cast<int>(__ldg(desc + b + j)) * kStep : (b + j) * zero;
+      const float cx = load(off);
+      const float cy = load(row + off);
+      const float cz = load(2 * row + off);
+#pragma unroll
+      for (int k = 0; k < K; ++k) add(k, term(k, cx, cy, cz), cx, cy, cz);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (p0 + k < pt) out[(p0 + k) * bl + l] = kForce ? ax[k] + ay[k] + az[k] : ax[k];
+  }
 }
 
-template <bool kDynLoad, int kRounds>
-void launch_rounds(const short* desc, const float* t, const float* cand,
-                        int cap, int pt, int bl, int rounds, float* out,
+// Blocks: one 32-lane slice of the output's columns and kLoopWarps groups of
+// kLoopTargets targets each; stage_d = D stages the slice's table, 0 reads
+// device memory.
+template <bool kDynTrip, bool kDynLoad, int kPair, bool kForce, int kRounds>
+__global__ void __launch_bounds__(kLoopWarps * 32, kLoopResident)
+    loop_probe_kernel(const short* __restrict__ desc, const float* __restrict__ t,
+                      const float* __restrict__ cand, int cap, int pt, int bl,
+                      int rounds, int zero, int stage_d, float* __restrict__ out) {
+  extern __shared__ float4 loop_stage[];
+  float* stage = reinterpret_cast<float*>(loop_stage);
+  const int lane = threadIdx.x & 31;
+  const int groups = (pt + kLoopTargets - 1) / kLoopTargets;
+  const int per_slice = (groups + kLoopWarps - 1) / kLoopWarps;  // blocks a slice
+  const int slice = blockIdx.x / per_slice;
+  const int group = (blockIdx.x - slice * per_slice) * kLoopWarps + (threadIdx.x >> 5);
+  const int l = slice * 32 + lane;
+  if (stage_d > 0) {  // the same for every thread of the grid
+    const int per_row = stage_d * 8;  // 16-byte pieces of one row's table
+    for (int c = threadIdx.x; c < 3 * per_row; c += kLoopWarps * 32) {
+      const int r = c / per_row;
+      const int piece = c - r * per_row;
+      loop_copy16(stage + 4 * c, cand + static_cast<size_t>(r) * cap + (piece >> 3) * 128 +
+                                     slice * 32 + (piece & 7) * 4);
+    }
+    loop_copy_wait();
+    __syncthreads();
+  }
+  if (l >= bl || group >= groups) return;
+  const int p0 = group * kLoopTargets;
+  if (stage_d > 0) {
+    loop_walk<kDynTrip, kDynLoad, kPair, kForce, kRounds, true>(
+        desc, t, stage + lane, stage_d * 32, pt, bl, p0, l, rounds, zero, out);
+  } else {
+    loop_walk<kDynTrip, kDynLoad, kPair, kForce, kRounds, false>(
+        desc, t, cand + l, cap, pt, bl, p0, l, rounds, zero, out);
+  }
+}
+
+// Launches one instantiation. A table above 48 KB needs the kernel's limit
+// raised, once an instantiation. Four blocks of 48 KB fit an SM only with
+// its whole carve-out as shared memory, while the device-memory path wants
+// it as L1: the preference is set again where it changes.
+template <bool kDynTrip, bool kDynLoad, int kPair, bool kForce, int kRounds>
+cudaError_t launch_loop(const short* desc, const float* t, const float* cand, int cap,
+                        int pt, int bl, int rounds, int stage_d, float* out,
                         cudaStream_t stream) {
-  loop_probe_kernel<false, kDynLoad, 1, false, kRounds>
-      <<<probe_blocks(pt * bl), kProbeBlock, 0, stream>>>(desc, t, cand, cap, pt,
-                                                          bl, rounds, 0, out);
+  auto kernel = loop_probe_kernel<kDynTrip, kDynLoad, kPair, kForce, kRounds>;
+  static const cudaError_t raised = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kLoopStageMax);
+  if (raised != cudaSuccess) return raised;
+  static int carveout = cudaSharedmemCarveoutDefault;
+  const int wanted = stage_d > 0 ? cudaSharedmemCarveoutMaxShared : cudaSharedmemCarveoutMaxL1;
+  if (carveout != wanted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, wanted);
+    if (err != cudaSuccess) return err;
+    carveout = wanted;
+  }
+  const int bytes = 3 * stage_d * 128;
+  if (stage_d < 0 || bytes > kLoopStageMax) return cudaErrorInvalidValue;
+  if (stage_d > 0 && (bl % 32 != 0 || cap % 4 != 0 || (reinterpret_cast<size_t>(cand) & 15) ||
+                      (stage_d - 1) * 128 + bl > cap)) {
+    return cudaErrorInvalidValue;  // the copies would leave cand or split a 16-byte piece
+  }
+  const int groups = (pt + kLoopTargets - 1) / kLoopTargets;
+  const int blocks = ((bl + 31) / 32) * ((groups + kLoopWarps - 1) / kLoopWarps);
+  kernel<<<blocks, kLoopWarps * 32, bytes, stream>>>(desc, t, cand, cap, pt, bl, rounds, 0,
+                                                     stage_d, out);
+  return cudaSuccess;
 }
 
 template <bool kDynLoad>
-cudaError_t launch_static_trip(const short* desc, const float* t,
-                               const float* cand, int cap, int pt, int bl,
-                               int rounds, float* out, cudaStream_t stream) {
-  switch (rounds) {  // the instantiated trip counts: kLoopProbeStaticRounds
+cudaError_t launch_static_trip(const short* desc, const float* t, const float* cand,
+                               int cap, int pt, int bl, int rounds, int stage_d,
+                               float* out, cudaStream_t stream) {
+  switch (rounds) {  // the instantiated trip counts: probes.STATIC_ROUNDS
+    case 1:
+      return launch_loop<false, kDynLoad, 1, false, 1>(desc, t, cand, cap, pt, bl, rounds,
+                                                       stage_d, out, stream);
     case 64:
-      launch_rounds<kDynLoad, 64>(desc, t, cand, cap, pt, bl, rounds, out, stream);
-      return cudaSuccess;
+      return launch_loop<false, kDynLoad, 1, false, 64>(desc, t, cand, cap, pt, bl, rounds,
+                                                        stage_d, out, stream);
+    case 67:
+      return launch_loop<false, kDynLoad, 1, false, 67>(desc, t, cand, cap, pt, bl, rounds,
+                                                        stage_d, out, stream);
     case 4096:
-      launch_rounds<kDynLoad, 4096>(desc, t, cand, cap, pt, bl, rounds, out, stream);
-      return cudaSuccess;
+      return launch_loop<false, kDynLoad, 1, false, 4096>(desc, t, cand, cap, pt, bl, rounds,
+                                                          stage_d, out, stream);
     case 16384:
-      launch_rounds<kDynLoad, 16384>(desc, t, cand, cap, pt, bl, rounds, out, stream);
-      return cudaSuccess;
+      return launch_loop<false, kDynLoad, 1, false, 16384>(desc, t, cand, cap, pt, bl,
+                                                           rounds, stage_d, out, stream);
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-template <bool kDynLoad, int kUnroll, bool kForce>
-void launch_dynamic_trip(const short* desc, const float* t, const float* cand,
-                         int cap, int pt, int bl, int rounds, float* out,
-                         cudaStream_t stream) {
-  loop_probe_kernel<true, kDynLoad, kUnroll, kForce, 0>
-      <<<probe_blocks(pt * bl), kProbeBlock, 0, stream>>>(desc, t, cand, cap, pt,
-                                                          bl, rounds, 0, out);
 }
 
 }  // namespace
@@ -344,32 +582,38 @@ extern "C" int tpusph_density_mix(const void* t, const void* c, int pt, int roun
 
 // desc: int16 (rounds + 8); t: f32 (>= pt, 4); cand: f32 (8, cap);
 // out: f32 (pt, bl); variant 0-5 is V0-V5 of loop_probe.py. V0 and V1 take
-// their trip count at compile time and accept rounds in {64, 4096, 16384}.
+// their trip count at compile time and accept rounds in {1, 64, 67, 4096,
+// 16384}. stage_d: block offsets 0 .. stage_d - 1 of cand's rows 0-2 staged
+// in shared memory (probes.loop_stage_blocks), or 0 to read device memory.
 extern "C" int tpusph_loop_probe(const short* desc, const float* t,
                                  const float* cand, int cap, int pt, int bl,
-                                 int rounds, int variant, float* out,
+                                 int rounds, int variant, int stage_d, float* out,
                                  cudaStream_t stream) {
   using namespace tpusph;
   if (pt <= 0 || bl <= 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaSuccess;
   switch (variant) {
     case 0:  // static trip, static loads
-      err = launch_static_trip<false>(desc, t, cand, cap, pt, bl, rounds, out, stream);
+      err = launch_static_trip<false>(desc, t, cand, cap, pt, bl, rounds, stage_d, out, stream);
       break;
     case 1:  // static trip, desc-table loads
-      err = launch_static_trip<true>(desc, t, cand, cap, pt, bl, rounds, out, stream);
+      err = launch_static_trip<true>(desc, t, cand, cap, pt, bl, rounds, stage_d, out, stream);
       break;
     case 2:  // desc-table trip, static loads
-      launch_dynamic_trip<false, 1, false>(desc, t, cand, cap, pt, bl, rounds, out, stream);
+      err = launch_loop<true, false, 1, false, 0>(desc, t, cand, cap, pt, bl, rounds, stage_d,
+                                                  out, stream);
       break;
     case 3:  // desc-table trip and loads
-      launch_dynamic_trip<true, 1, false>(desc, t, cand, cap, pt, bl, rounds, out, stream);
+      err = launch_loop<true, true, 1, false, 0>(desc, t, cand, cap, pt, bl, rounds, stage_d,
+                                                 out, stream);
       break;
-    case 4:  // V3 unrolled x2
-      launch_dynamic_trip<true, 2, false>(desc, t, cand, cap, pt, bl, rounds, out, stream);
+    case 4:  // V3, two blocks a loop iteration
+      err = launch_loop<true, true, 2, false, 0>(desc, t, cand, cap, pt, bl, rounds, stage_d,
+                                                 out, stream);
       break;
     case 5:  // V3 with the force op mix
-      launch_dynamic_trip<true, 1, true>(desc, t, cand, cap, pt, bl, rounds, out, stream);
+      err = launch_loop<true, true, 1, true, 0>(desc, t, cand, cap, pt, bl, rounds, stage_d,
+                                                out, stream);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -2,10 +2,10 @@
 // H100, kept as the baselines that `chip_smoke.py` and the GPU tests time
 // and compare the redesigned kernels against (baseline, new, new, baseline
 // on one card): the density and force passes (now sph.cu), the rank of
-// queries (now qrank.cu) and the density-mix probe (now probes.cu). The
-// kernels are unchanged from their first version; only the entry points are
-// renamed (tpusph_*_baseline). The engine and the probe scripts never
-// launch them.
+// queries (now qrank.cu), the density-mix probe and the loop probe (now
+// probes.cu). The kernels are unchanged from their first version; only the
+// kernels' and entry points' names differ (tpusph_*_baseline). The engine
+// and the probe scripts never launch them.
 //
 // Replaces tpusph/pallas/fused.py, like sph.cu:
 //   density_pallas / _density_kernel -> tpusph_density_baseline
@@ -29,8 +29,8 @@
 // Bound by load latency (each candidate is 3 or 8 dependent __ldg gathers
 // after two loads of the starts table) and by warp divergence, where the
 // 9 window lengths differ within a warp; sph.cu says what the tiled design
-// does about both. The rank and the density-mix probe have their notes
-// at their kernels below.
+// does about both. The rank, the density-mix probe and the loop probe have
+// their notes at their kernels below.
 
 #include "common.cuh"
 #include "probe_ops.cuh"
@@ -231,6 +231,110 @@ __global__ void __launch_bounds__(kMixBaselineBlock)
   out[i] = A::to_f32(acc);
 }
 
+// The first loop probe (replaces scripts/loop_probe.py make_kernel, like
+// probes.cu, which describes the variants and the `b * zero` index). Each
+// thread owns one element (p, l) of the (pt, bl) output, in blocks of 128,
+// and takes the candidate blocks one by one: a round is a chain from the
+// 2-byte load of its desc entry (a uniform __ldg, one broadcast load a warp)
+// to the three candidate loads at that offset to the add.
+//   kDynTrip: n = desc[rounds]; otherwise n = kRounds, a compile-time constant.
+//   kDynLoad: off_b = desc[b] * 128; otherwise off_b = 0.
+//   kUnroll:  blocks per loop iteration (V4: 2).
+constexpr int kProbeBaselineBlock = 128;
+
+template <bool kDynTrip, bool kDynLoad, int kUnroll, bool kForce, int kRounds>
+__global__ void __launch_bounds__(kProbeBaselineBlock)
+    loop_probe_baseline_kernel(const short* __restrict__ desc,
+                               const float* __restrict__ t,
+                               const float* __restrict__ cand, int cap, int pt,
+                               int bl, int rounds, int zero,
+                               float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pt * bl) return;
+  const int p = i / bl;
+  const int l = i - p * bl;
+  const float tx = t[4 * p];
+  const float ty = t[4 * p + 1];
+  const float tz = t[4 * p + 2];
+  const float h2 = 0.01f;
+  const float h = 0.1f;
+  const float eps = 1e-4f;
+  const int n = kDynTrip ? static_cast<int>(__ldg(desc + rounds)) : kRounds;
+  float ax = 0.0f;
+  float ay = 0.0f;
+  float az = 0.0f;
+
+  auto one = [&](int b) {
+    const int off = (kDynLoad ? static_cast<int>(__ldg(desc + b)) * 128 : b * zero) + l;
+    const float cx = __ldg(cand + off);
+    const float cy = __ldg(cand + cap + off);
+    const float cz = __ldg(cand + 2 * cap + off);
+    const float dx = tx - cx;
+    const float dy = ty - cy;
+    const float dz = tz - cz;
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if constexpr (kForce) {
+      const float inv_r = rsqrtf(r2);
+      const float r = r2 * inv_r;
+      const bool live = r >= eps;
+      const float hr = fmaxf(h - r, 0.0f);
+      const float s_p = live ? hr * hr * inv_r : 0.0f;
+      ax = ax + s_p * dx;
+      ay = ay + s_p * dy;
+      az = az + s_p * dz;
+      const float s_v = live ? hr : 0.0f;
+      ax = ax + s_v * cx;
+      ay = ay + s_v * cy;
+      az = az + s_v * cz;
+    } else {
+      const float w = fmaxf(h2 - r2, 0.0f);
+      ax = ax + w * w * w;
+    }
+  };
+
+  for (int b = 0; b < n / kUnroll; ++b) {
+    if constexpr (kUnroll == 1) {
+      one(b);
+    } else {
+      one(2 * b);
+      one(2 * b + 1);
+    }
+  }
+  out[i] = kForce ? ax + ay + az : ax;
+}
+
+template <bool kDynTrip, bool kDynLoad, int kUnroll, bool kForce, int kRounds>
+void launch_loop_probe_baseline(const short* desc, const float* t, const float* cand,
+                                int cap, int pt, int bl, int rounds, float* out,
+                                cudaStream_t stream) {
+  const int blocks = (pt * bl + kProbeBaselineBlock - 1) / kProbeBaselineBlock;
+  loop_probe_baseline_kernel<kDynTrip, kDynLoad, kUnroll, kForce, kRounds>
+      <<<blocks, kProbeBaselineBlock, 0, stream>>>(desc, t, cand, cap, pt, bl, rounds, 0,
+                                                   out);
+}
+
+template <bool kDynLoad>
+cudaError_t launch_static_trip_baseline(const short* desc, const float* t,
+                                        const float* cand, int cap, int pt, int bl,
+                                        int rounds, float* out, cudaStream_t stream) {
+  switch (rounds) {  // the instantiated trip counts
+    case 64:
+      launch_loop_probe_baseline<false, kDynLoad, 1, false, 64>(desc, t, cand, cap, pt, bl,
+                                                                rounds, out, stream);
+      return cudaSuccess;
+    case 4096:
+      launch_loop_probe_baseline<false, kDynLoad, 1, false, 4096>(desc, t, cand, cap, pt, bl,
+                                                                  rounds, out, stream);
+      return cudaSuccess;
+    case 16384:
+      launch_loop_probe_baseline<false, kDynLoad, 1, false, 16384>(desc, t, cand, cap, pt,
+                                                                   bl, rounds, out, stream);
+      return cudaSuccess;
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace tpusph
 
@@ -289,5 +393,47 @@ extern "C" int tpusph_density_mix_baseline(const void* t, const void* c, int pt,
           out);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// desc: int16 (rounds + 8); t: f32 (>= pt, 4); cand: f32 (8, cap);
+// out: f32 (pt, bl); variant 0-5 is V0-V5 of loop_probe.py. V0 and V1 take
+// their trip count at compile time and accept rounds in {64, 4096, 16384}.
+extern "C" int tpusph_loop_probe_baseline(const short* desc, const float* t,
+                                          const float* cand, int cap, int pt, int bl,
+                                          int rounds, int variant, float* out,
+                                          cudaStream_t stream) {
+  using namespace tpusph;
+  if (pt <= 0 || bl <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  switch (variant) {
+    case 0:  // static trip, static loads
+      err = launch_static_trip_baseline<false>(desc, t, cand, cap, pt, bl, rounds, out,
+                                               stream);
+      break;
+    case 1:  // static trip, desc-table loads
+      err = launch_static_trip_baseline<true>(desc, t, cand, cap, pt, bl, rounds, out,
+                                              stream);
+      break;
+    case 2:  // desc-table trip, static loads
+      launch_loop_probe_baseline<true, false, 1, false, 0>(desc, t, cand, cap, pt, bl, rounds,
+                                                           out, stream);
+      break;
+    case 3:  // desc-table trip and loads
+      launch_loop_probe_baseline<true, true, 1, false, 0>(desc, t, cand, cap, pt, bl, rounds,
+                                                          out, stream);
+      break;
+    case 4:  // V3 unrolled x2
+      launch_loop_probe_baseline<true, true, 2, false, 0>(desc, t, cand, cap, pt, bl, rounds,
+                                                          out, stream);
+      break;
+    case 5:  // V3 with the force op mix
+      launch_loop_probe_baseline<true, true, 1, true, 0>(desc, t, cand, cap, pt, bl, rounds,
+                                                         out, stream);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

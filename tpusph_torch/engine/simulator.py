@@ -47,6 +47,7 @@ from tpusph_torch.engine.step import (
     BACKENDS,
     build_phase,
     make_step,
+    resolve_backend,
     update_phase,
     update_phase_kernels,
 )
@@ -172,7 +173,7 @@ def _make_chunk(cfg: SimConfig, backend: str, n_steps: int, pack, device) -> Gra
     positions), the composition `simulate(click=...)` runs step by step, so
     the snapshots equal the sequential loop's bit for bit. One CUDA graph on
     a card, the same loop eagerly on the CPU (`GraphedLoop`)."""
-    step = BACKENDS[backend]
+    step = BACKENDS[resolve_backend(backend)]
 
     def chunk(inputs: list) -> list:
         *fields, cells, gains = inputs
@@ -202,7 +203,7 @@ class Simulator:
         device="cuda",
     ):
         self.cfg = cfg
-        self.backend = backend
+        self.backend = resolve_backend(backend)
         self.random_init = random_init
         self.seed = seed
         self.device = torch.device(device)

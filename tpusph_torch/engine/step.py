@@ -313,13 +313,28 @@ BACKENDS = {
     "cell_list": step_cell_list,
     "kernels": step_kernels,
 }
+# tpusph's names for its kernel backend: `auto` is its default, `pallas` the
+# Pallas kernels that the CUDA kernels replace
+BACKEND_ALIASES = {"auto": "kernels", "pallas": "kernels"}
+
+
+def resolve_backend(name: str) -> str:
+    """The key of BACKENDS that `name` stands for (tpusph's `auto` and
+    `pallas` are `kernels`); a ValueError that lists the names otherwise."""
+    key = BACKEND_ALIASES.get(name, name)
+    if key not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {name!r}: expected one of "
+            f"{sorted([*BACKENDS, *BACKEND_ALIASES])}"
+        )
+    return key
 
 
 def make_step(cfg: SimConfig, backend: str = "kernels", device="cuda"):
     """`state -> (state, aux)` for states on `device`. On a CUDA device the
     kernels are built here, so the first step does not pay for the build."""
     cfg.validate()
-    fn = BACKENDS[backend]
+    fn = BACKENDS[resolve_backend(backend)]
     device = torch.device(device)
     if device.type == "cuda":
         from tpusph_torch.utils import cuda_build

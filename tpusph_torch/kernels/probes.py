@@ -8,7 +8,8 @@ Counterparts of the TPU microbenchmark kernels `make_fma_kernel` and
 `loop_probe_plain` are the same functions in plain PyTorch, Python loops
 over the rounds of the same tensor ops in the same dtype. The wrappers
 take the plain version for CPU tensors and launch the kernel for CUDA
-tensors.
+tensors. `loop_probe_walk` is the loop probe's kernel in plain PyTorch:
+its staged tables, its rounds in flight and its targets a thread.
 """
 
 from __future__ import annotations
@@ -31,8 +32,15 @@ VARIANTS = {
     "V5": (True, True, 1, True),
 }
 # V0 and V1 take their trip count at compile time; these are the counts the
-# kernel library instantiates: a short check and loop_probe.py's R and 4R.
-STATIC_ROUNDS = (64, 4096, 16384)
+# kernel library instantiates: short checks (one round, a multiple of the
+# rounds in flight and one that is none) and loop_probe.py's R and 4R.
+STATIC_ROUNDS = (1, 64, 67, 4096, 16384)
+BASELINE_STATIC_ROUNDS = (64, 4096, 16384)  # the first design's
+# The loop probe's shape, csrc/probes.cu's constants of the same names.
+LOOP_UNROLL = 32  # kLoopUnroll: rounds in flight a thread
+LOOP_WARPS = 2  # kLoopWarps: warps a block, all on one 32-lane slice
+LOOP_TARGETS = 1  # kLoopTargets: targets a thread
+LOOP_STAGE_MAX = 232448  # kLoopStageMax: bytes of shared memory a block may stage
 
 
 def _check_dtype(name, t: torch.Tensor) -> None:
@@ -258,13 +266,102 @@ def loop_probe_plain(variant: str, desc: torch.Tensor, t: torch.Tensor,
     return acc[0] + acc[1] + acc[2] if force_mix else acc
 
 
-def loop_probe(variant: str, desc: torch.Tensor, t: torch.Tensor,
-               cand: torch.Tensor, pt: int, bl: int) -> torch.Tensor:
-    """Variant V0–V5 of the loop probe (see `loop_probe_plain`): desc int16
-    (rounds + 8), t f32 (≥ pt, 4), cand f32 (8, CAP) with every
-    desc[b]·128 + bl ≤ CAP. Launches `tpusph_loop_probe` for CUDA tensors:
-    one thread per pair-lane, the desc table read by uniform loads. V0 and
-    V1 need rounds in STATIC_ROUNDS there."""
+def loop_stage_blocks(variant: str, cand: torch.Tensor, bl: int) -> int:
+    """D, the block offsets 0 .. D−1 of cand's rows 0–2 that a block of the
+    loop probe's kernel copies into shared memory (3·D·128 bytes: the 32
+    lanes of its slice at each offset), or 0 where it reads device memory
+    instead: bl no multiple of 32, cand off 16 bytes or its width no
+    multiple of 4, or a table above LOOP_STAGE_MAX. A static-load variant
+    needs offset 0 alone."""
+    cap = cand.shape[1]
+    if bl % 32 or cap % 4 or cand.data_ptr() % 16 or bl > cap:
+        return 0
+    d = (cap - bl) // LANES + 1 if VARIANTS[variant][1] else 1
+    return d if 3 * d * 128 <= LOOP_STAGE_MAX else 0
+
+
+def loop_probe_walk(variant: str, desc: torch.Tensor, t: torch.Tensor, cand: torch.Tensor,
+                    pt: int, bl: int) -> torch.Tensor:
+    """`loop_probe_plain` computed the way the kernel in `csrc/probes.cu`
+    walks: one 32-lane slice of the columns at a time, its candidates read
+    from the slice's staged table (`loop_stage_blocks` offsets of 32 floats
+    a row) or from cand; groups of LOOP_TARGETS targets; LOOP_UNROLL rounds
+    loaded and their terms computed before they are added in round order, then the rounds left one by one (V4: two by two).
+    Equal to `loop_probe_plain` bit for bit on the CPU, where no multiply
+    and add fuse."""
+    dyn_trip, dyn_load, pair, force_mix = VARIANTS[variant]
+    dev = t.device
+    rounds = desc.shape[0] - 8
+    unroll = LOOP_UNROLL
+    h2 = torch.tensor(0.01, dtype=torch.float32, device=dev)
+    h = torch.tensor(0.1, dtype=torch.float32, device=dev)
+    eps = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    trip = int(desc[rounds]) if dyn_trip else rounds
+    n = trip - trip % pair
+    offsets = desc.long().tolist()
+    stage_d = loop_stage_blocks(variant, cand, bl)
+    cap = cand.shape[1]
+    out = torch.empty((pt, bl), dtype=torch.float32, device=dev)
+
+    for lo in range(0, bl, 32):
+        width = min(32, bl - lo)
+        lane = torch.arange(width, device=dev)
+        if stage_d:
+            # the block's table: row r, offset d, lane j at (r·D + d)·32 + j
+            pieces = torch.arange(stage_d, device=dev)[:, None] * LANES + lo + lane[None, :]
+            table = cand[0:3][:, pieces].reshape(-1)
+            src, row, step = table, stage_d * 32, 32
+            first = lane
+        else:
+            src, row, step = cand.reshape(-1), cap, LANES
+            first = lo + lane
+
+        def load(b):
+            off = offsets[b] * step if dyn_load else 0
+            return tuple(src[r * row + off + first][None, :] for r in range(3))
+
+        for p0 in range(0, pt, LOOP_TARGETS):
+            rows = slice(p0, min(p0 + LOOP_TARGETS, pt))
+            tx, ty, tz = t[rows, 0:1], t[rows, 1:2], t[rows, 2:3]
+
+            def term(c):
+                dx, dy, dz = tx - c[0], ty - c[1], tz - c[2]
+                r2 = dx * dx + dy * dy + dz * dz
+                if not force_mix:
+                    w = torch.maximum(h2 - r2, zero)
+                    return (w * w * w,)
+                inv_r = torch.rsqrt(r2)
+                r = r2 * inv_r
+                live = r >= eps
+                hr = torch.maximum(h - r, zero)
+                s_p = torch.where(live, hr * hr * inv_r, zero)
+                s_v = torch.where(live, hr, zero)
+                return s_p * dx, s_p * dy, s_p * dz, s_v * c[0], s_v * c[1], s_v * c[2]
+
+            def add(acc, m):
+                if not force_mix:
+                    return (acc[0] + m[0],)
+                return (acc[0] + m[0] + m[3], acc[1] + m[1] + m[4], acc[2] + m[2] + m[5])
+
+            z = torch.zeros((rows.stop - rows.start, width), dtype=torch.float32, device=dev)
+            acc = (z, z, z) if force_mix else (z,)
+            b = 0
+            while b + unroll <= n:
+                terms = [term(load(b + u)) for u in range(unroll)]  # computed ahead
+                for m in terms:  # added in round order
+                    acc = add(acc, m)
+                b += unroll
+            while b < n:
+                for j in range(pair):
+                    acc = add(acc, term(load(b + j)))
+                b += pair
+            out[rows, lo:lo + width] = acc[0] + acc[1] + acc[2] if force_mix else acc[0]
+    return out
+
+
+def _launch_loop_probe(entry: str, static_rounds, variant: str, desc: torch.Tensor,
+                       t: torch.Tensor, cand: torch.Tensor, pt: int, bl: int, *extra):
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {tuple(VARIANTS)}, got {variant!r}")
     dev = t.device
@@ -280,23 +377,59 @@ def loop_probe(variant: str, desc: torch.Tensor, t: torch.Tensor,
         raise ValueError("desc needs rounds + 8 entries")
     if on_cpu(dev):
         return loop_probe_plain(variant, desc, t, cand, pt, bl)
-    if not VARIANTS[variant][0] and rounds not in STATIC_ROUNDS:
+    if not VARIANTS[variant][0] and rounds not in static_rounds:
         raise ValueError(
             f"{variant} has a compile-time trip count: rounds must be one of "
-            f"{STATIC_ROUNDS}, got {rounds}"
+            f"{static_rounds}, got {rounds}"
         )
     from tpusph_torch.utils import cuda_build
 
-    lib = cuda_build.library()
     out = torch.empty((pt, bl), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.tpusph_loop_probe(
+        err = getattr(cuda_build.library(), entry)(
             desc.data_ptr(), t.data_ptr(), cand.data_ptr(), cand.shape[1], pt, bl,
-            rounds, int(variant[1]), out.data_ptr(), stream_of(dev),
+            rounds, int(variant[1]), *extra, out.data_ptr(), stream_of(dev),
         )
-    cuda_build.check(err, "loop_probe")
-    loop_probe.launches += 1
+    cuda_build.check(err, entry)
+    return out
+
+
+def loop_probe(variant: str, desc: torch.Tensor, t: torch.Tensor,
+               cand: torch.Tensor, pt: int, bl: int) -> torch.Tensor:
+    """Variant V0–V5 of the loop probe (see `loop_probe_plain`): desc int16
+    (rounds + 8), t f32 (≥ pt, 4), cand f32 (8, CAP) with every
+    desc[b]·128 + bl ≤ CAP. Launches `tpusph_loop_probe` for CUDA tensors:
+    a warp for each 32-lane slice and group of LOOP_TARGETS targets
+    (LOOP_WARPS warps of one slice a block), LOOP_UNROLL rounds in flight a
+    thread with their
+    terms added in round order, the desc table read 8 entries a load, and
+    the slice's candidates staged in shared memory where
+    `loop_stage_blocks` says they fit, else read from device memory. V0 and
+    V1 need rounds in STATIC_ROUNDS there."""
+    stage_d = loop_stage_blocks(variant, cand, bl) if variant in VARIANTS else 0
+    out = _launch_loop_probe("tpusph_loop_probe", STATIC_ROUNDS, variant, desc, t, cand,
+                             pt, bl, stage_d)
+    if out.is_cuda:
+        loop_probe.launches += 1
+        loop_probe.staged += stage_d > 0
     return out
 
 
 loop_probe.launches = 0
+loop_probe.staged = 0  # launches that staged their candidates in shared memory
+
+
+def loop_probe_baseline(variant: str, desc: torch.Tensor, t: torch.Tensor,
+                        cand: torch.Tensor, pt: int, bl: int) -> torch.Tensor:
+    """`loop_probe` on the first design's kernel (`csrc/sph_baseline.cu`:
+    one thread per pair-lane, the rounds one by one, the desc table read an
+    entry a round), which `chip_smoke.py` and the GPU tests time the probe
+    against. V0 and V1 need rounds in BASELINE_STATIC_ROUNDS."""
+    out = _launch_loop_probe("tpusph_loop_probe_baseline", BASELINE_STATIC_ROUNDS, variant,
+                             desc, t, cand, pt, bl)
+    if out.is_cuda:
+        loop_probe_baseline.launches += 1
+    return out
+
+
+loop_probe_baseline.launches = 0

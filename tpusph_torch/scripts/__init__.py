@@ -13,6 +13,7 @@ recorded around the launch.
 
 from __future__ import annotations
 
+import functools
 import os
 import re
 import shutil
@@ -96,16 +97,22 @@ def slope(t_lo: float, t_hi: float, rounds_lo: int, rounds_hi: int) -> float:
     return dt
 
 
-def sass_loops(library, *name_parts: str) -> list[tuple[int, int]]:
-    """(instructions, global loads) of each loop of one kernel in a built
-    library: `cuobjdump -sass` of `library`, the function whose mangled name
-    holds every one of `name_parts`, and in it each backward branch with
-    the instructions from its target up to it, LDG among them counted.
-    Raises if `cuobjdump` or the kernel is not found."""
+@functools.cache
+def _sass(library: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", library], capture_output=True, text=True,
                           check=True, timeout=300).stdout
+
+
+def sass_loops(library, *name_parts: str, load: str = "LDG") -> list[tuple[int, int]]:
+    """(instructions, loads) of each loop of one kernel in a built library:
+    `cuobjdump -sass` of `library`, the function whose mangled name holds
+    every one of `name_parts`, and in it each backward branch with the
+    instructions from its target up to it, those of opcode `load` (LDG from
+    device memory, LDS from shared memory) among them counted. Raises if
+    `cuobjdump` or the kernel is not found."""
+    sass = _sass(str(library))
     found = [body for head, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
                                                sass, flags=re.S)
              if all(part in head for part in name_parts)]
@@ -119,5 +126,5 @@ def sass_loops(library, *name_parts: str) -> list[tuple[int, int]]:
         branch = re.search(r"\bBRA\S*\s+(?:\S+,\s*)?`?\(?(0x[0-9a-f]+)", text)
         if branch and int(branch.group(1), 16) <= addr:
             body = [t for a, t in code if int(branch.group(1), 16) <= a <= addr]
-            loops.append((len(body), sum("LDG" in t for t in body)))
+            loops.append((len(body), sum(load in t for t in body)))
     return loops

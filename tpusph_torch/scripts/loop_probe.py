@@ -10,8 +10,11 @@ counterpart of `scripts/loop_probe.py`:
 
     python -m tpusph_torch.scripts.loop_probe [pt] [bl]
 
-Each rate is the slope between R and 4R rounds. The kernel is
-`tpusph_torch/csrc/probes.cu` (`tpusph_loop_probe`).
+Each rate is the slope between R and 4R rounds, so the kernel's one copy of
+its candidates into shared memory is in a call's time and not in the rate.
+The kernel is `tpusph_torch/csrc/probes.cu` (`tpusph_loop_probe`); its first
+design is timed beside it by `chip_smoke.py` and
+`python -m tpusph_torch.scripts.loop_probe_sweep`.
 """
 
 from __future__ import annotations

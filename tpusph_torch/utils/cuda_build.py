@@ -53,8 +53,10 @@ SIGNATURES = {
     "tpusph_fma_probe": [P, I, I, I, I, P, P],
     # t, c, pt, rounds, bf16, out, stream
     "tpusph_density_mix": [P, P, I, I, I, P, P],
-    # desc, t, cand, cap, pt, bl, rounds, variant, out, stream
-    "tpusph_loop_probe": [P, P, P, I, I, I, I, I, P, P],
+    # desc, t, cand, cap, pt, bl, rounds, variant, stage_d, out, stream
+    "tpusph_loop_probe": [P, P, P, I, I, I, I, I, I, P, P],
+    # the first design: desc, t, cand, cap, pt, bl, rounds, variant, out, stream
+    "tpusph_loop_probe_baseline": [P, P, P, I, I, I, I, I, P, P],
 }
 
 

@@ -172,15 +172,22 @@ def run_free_mode(
         _run_chunked(sim, frames, chunk, clicks, out_dir)
         return
     # Frame k always renders the post-step-k positions; only the wait moves
-    # behind the next step.
+    # behind the next step. TPUSPH_VIZ_SYNC=1 (tpusph's measuring aid) takes
+    # the overlap away: each frame is fetched and drawn before the next step
+    # is dispatched.
+    sync = bool(os.environ.get("TPUSPH_VIZ_SYNC"))
     pending = None  # (frame index, fetch in flight)
     for k in range(frames):
         sim.simulate(click=clicks.get(k))
         fetch = sim.get_position_async()
         if pending is not None:
             _render_to(pending[1].wait(), pending[0], out_dir)
-        pending = (k, fetch)
-    _render_to(pending[1].wait(), pending[0], out_dir)
+        if sync:
+            _render_to(fetch.wait(), k, out_dir)
+        else:
+            pending = (k, fetch)
+    if pending is not None:
+        _render_to(pending[1].wait(), pending[0], out_dir)
     print(f"wrote {frames} frames to {out_dir}/")
 
 
