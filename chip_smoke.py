@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code 1):
   1. device: needs torch.cuda; prints the card, CUDA version and the
      card's power limit as nvidia-smi reports it;
-  2. build: compiles the CUDA kernels from tpusph_torch/csrc with nvcc;
+  2. build: compiles the CUDA kernels from tpusph_torch/csrc with nvcc
+     and the host library native/sphnative.cpp with g++ (required here);
   3. kernels against their plain PyTorch versions on the card, at the
      main path's shapes (262,144 particles, grid init, at steps 0, 20 and
      100): ranks exact, on the step's queries (every cell in order) and
@@ -103,6 +104,32 @@ Phases, each of which raises on failure (exit code 1):
      d. chunked free mode through the command line, `-n 262144 -m free
         --frames 32 --viz-chunk 8 --click 2:400,300` (bitmap frames, the
         default at this N): 32 PNGs; ms per frame beside phase 7's.
+  9. the single-card remainder: the native host library builds and loads
+     (required here); its raster of phase 5's final positions is byte-equal
+     to the numpy raster, both timed on the host; `compute_diagnostics` of
+     that state, 262,144 valid and finite; phase 7's frames as a GIF by
+     the stdlib writer (`render.write_gif`) starts with GIF89a and holds 10
+     frames; `--gif` (PIL where it imports, which folds repeated frames,
+     else the stdlib writer) and `-m free` without a display through the
+     command line at N = 4096 exit 0;
+ 10. the z-slab sharded engine (`tpusph_torch/dist/`) at 262,144, grid
+     init, backend `kernels`:
+     a. one rank, elided: 20 `make_sharded_step` steps against 20
+        `step_kernels` steps, multiset-compared as in 8b; counters clean;
+        one rank, one density and one force launch a step; timesteps/s of
+        a 100-step `make_sharded_run` beside phase 5's and phase 8's;
+     b. the same with TPUSPH_DIST_FULL_MACHINERY=1: dead halo buffers,
+        the splice and the migration sort;
+     c. four ranks on the one card, a process each over a gloo group
+        (exchanges staged through host memory), balanced slab planes and
+        capacities from the initial occupancy: 20 steps, the collected
+        positions within 1e-4 of the 20 `step_kernels` steps, counters
+        clean, every rank sent a non-empty halo, 20 launches of each kernel
+        a rank; on every rank's combined rows at step 20 (ghost rows on its
+        faces) rank exact, density rtol 1e-5, force rtol 1e-4 atol 1e-4
+        against their plain versions; ms a step and the share spent inside
+        the exchanges. Four ranks time-share one card: a check of
+        correctness, not a scaling figure.
 The probes' bounds are their FMA (2 flops) or operation counts at 67
 TFLOP/s. Each path's kernel launch counts are set to 0 just before it and
 read just after. A wrapper counts where it launches its kernel; inside a CUDA graph
@@ -110,7 +137,8 @@ read just after. A wrapper counts where it launches its kernel; inside a CUDA gr
 (`tpusph_torch/engine/graphs.py`). It then prints one JSON line of
 per-kernel results (the main path's launches, the launches in one replay
 of the 100-step chain, and for rank, density and force the numbers at step
-20 with each state's under "by_step") and, last, one JSON line {"ok":
+20 with each state's under "by_step", the sharded path's launches under
+"dist_launches") and, last, one JSON line {"ok":
 true, "device": {...}}.
 """
 
@@ -143,6 +171,11 @@ FREE_CLICK = "2:400,300"  # frame:pixel, the box centre
 CHAIN_STEPS = 100  # steps per replay of the timed fields chain (bench.py's)
 CHAIN_PARITY_STEPS = 20
 CHUNK_FRAMES, VIZ_CHUNK = 32, 8
+DIST_STEPS = 20  # sharded steps held against step_kernels in phase 10
+DIST_RANKS = 4  # processes sharing the one card in phase 10c
+DIST_HALO_ONE_CARD = 16_384  # dead halo rows a side in phase 10b
+DIST_MIGRATION = 4096
+DIST_DEADLINE_S = 300.0
 KERNEL_STATES = (0, 20, 100)  # steps of 262,144 grid init at which phase 3 checks and times
 TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
 # H100 SXM peaks (NVIDIA's data sheet) for the bounds
@@ -419,6 +452,357 @@ def kernel_phase(card: str, dev) -> dict:
     return results
 
 
+def live_particles(fs, cfg):
+    """(positions, density) of the live particles of a fields state, the
+    density from one pass of the density kernel over it."""
+    from tpusph_torch.kernels import fused
+    from tpusph_torch.neighbors.cell_list import build_sorted_fields_1d
+    from tpusph_torch.physics.kernels import pressure_from_density
+
+    sf = build_sorted_fields_1d(*fs, cfg)
+    rho, _ = pressure_from_density(
+        fused.density(sf.x, sf.y, sf.z, sf.key_sorted, sf.starts, cfg), cfg)
+    v = sf.valid_sorted
+    pos = torch.stack([sf.x, sf.y, sf.z], dim=1)[v]
+    return pos.cpu().numpy(), rho[v].cpu().numpy()
+
+
+def hold_multisets(cfg, fs_a, fs_b):
+    """Hold two fields states of N_MAIN particles against each other as
+    multisets, by nearest neighbour: at 262,144 many particles share a
+    lattice coordinate, so a lexicographic order can pair other particles
+    once rounding splits a tie, and ~5,000 sit on another particle exactly
+    after 20 steps, so a one-to-one pairing does not exist. Each run's
+    particles lie within 1e-4 of the other run's, each coordinate's sorted
+    values agree within 1e-4 (multiplicities), and the density at paired
+    positions within rtol 1e-4. Returns the paired positions."""
+    from scipy.spatial import cKDTree
+
+    pa, ra = live_particles(fs_a, cfg)
+    pb, rb = live_particles(fs_b, cfg)
+    require(len(pa) == len(pb) == N_MAIN, "a run lost particles")
+    _, match = cKDTree(pb).query(pa)
+    _, back = cKDTree(pa).query(pb)
+    np.testing.assert_allclose(pa, pb[match], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(pb, pa[back], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(np.sort(pa, axis=0), np.sort(pb, axis=0), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ra, rb[match], rtol=1e-4, atol=0)
+    return pa, pb[match]
+
+
+def gif_frame_count(path: str) -> int:
+    """Image descriptors of a GIF89a file, found by walking its blocks."""
+    with open(path, "rb") as f:
+        data = f.read()
+    require(data[:6] == b"GIF89a", f"{path} does not start with GIF89a")
+    pos = 13 + (3 * 2 ** ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+
+    def skip_sub_blocks(pos):
+        while data[pos]:
+            pos += 1 + data[pos]
+        return pos + 1
+
+    frames = 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # extension: label, then sub-blocks
+            pos = skip_sub_blocks(pos + 2)
+        else:
+            require(data[pos] == 0x2C, f"{path}: unknown block {data[pos]:#x} at {pos}")
+            frames += 1
+            local = data[pos + 9]
+            pos += 10 + (3 * 2 ** ((local & 7) + 1) if local & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)  # past the LZW minimum code size
+    return frames
+
+
+def remainder_phase(card: str, state, gif_frames: int, dev) -> None:
+    """Phase 9 (see the module docstring). `state` is phase 5's final
+    state; `gif_frames` what phase 7's frames made as a GIF."""
+    from tpusph_torch import cli
+    from tpusph_torch.bench.diagnostics import compute_diagnostics, format_diagnostics
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.utils import native
+    from tpusph_torch.viz import render
+
+    lib = native.get_lib()
+    require(lib is not None, "the native library did not build or load")
+    print(f"native library: {os.path.relpath(native.library_path(), REPO)}, ABI "
+          f"{lib.sph_native_abi_version()}")
+    pos = state.position[:N_MAIN].cpu().numpy()
+    rasters = {}
+    for name, fn in (("native", native.render_frame_native), ("numpy", render._render_frame_numpy)):
+        fn(pos)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            img = fn(pos)
+        rasters[name] = (img, (time.perf_counter() - t0) / 5 * 1e3)
+    require(np.array_equal(rasters["native"][0], rasters["numpy"][0]),
+            "the native raster differs from the numpy raster")
+    require(np.array_equal(render.render_frame(pos), rasters["native"][0]),
+            "render_frame did not take the native raster")
+    print(f"host raster of {N_MAIN} positions (host time, mean of 5): native "
+          f"{rasters['native'][1]:.3f} ms, numpy {rasters['numpy'][1]:.3f} ms, byte-equal; "
+          f"{int((rasters['native'][0][..., 2] == 255).sum())} blue or white pixels")
+
+    d = compute_diagnostics(state, tuned_config(N_MAIN))
+    print(f"diagnostics after phase 5: {format_diagnostics(d)}")
+    require(d.num_valid == N_MAIN, f"diagnostics count {d.num_valid} valid particles")
+    require(all(math.isfinite(x) for x in (d.kinetic_energy, *d.momentum, d.max_speed,
+                                           d.mean_density, d.max_density)),
+            f"non-finite diagnostics {d}")
+    require(d.occupied_cells > 0 and d.max_cell_occupancy >= 1, f"empty grid in {d}")
+
+    require(gif_frames == FREE_FRAMES, f"phase 7's GIF holds {gif_frames} frames")
+    display = os.environ.pop("DISPLAY", None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            gif = os.path.join(tmp, "small.gif")
+            rc = cli.main(["-n", str(N_PARITY), "-m", "free", "--frames", "4", "--out",
+                           os.path.join(tmp, "frames"), "--gif", gif])
+            require(rc == 0, f"--gif exited {rc}")
+            # PIL folds a frame equal to the one before it into that frame's
+            # duration; the stdlib writer keeps all 4
+            cli_frames = gif_frame_count(gif)
+            require(cli_frames == 4 or (_has_pil() and 1 <= cli_frames < 4),
+                    f"--gif wrote {cli_frames} frames of 4")
+        rc = cli.main(["-n", str(N_PARITY), "-m", "free"])
+        require(rc == 0, f"-m free without a display exited {rc}")
+    finally:
+        if display is not None:
+            os.environ["DISPLAY"] = display
+    print(f"--gif: {FREE_FRAMES} frames of phase 7 by the stdlib writer; through the command "
+          f"line {cli_frames} of 4 frames at N={N_PARITY} "
+          f"({'PIL, which folds repeated frames' if _has_pil() else 'the stdlib writer: no PIL'}"
+          f"); -m free without a display exits 0")
+
+
+def _has_pil() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def fields_of_block(state):
+    """A DistState block as a FieldsState."""
+    from tpusph_torch.engine.step import FieldsState
+
+    cols = (a[:, i].contiguous() for a in (state.position, state.velocity) for i in range(3))
+    return FieldsState(*cols, state.valid)
+
+
+def hold_clean(aux, n: int, what: str) -> None:
+    for name in ("halo_overflow", "migration_overflow", "window_overflow", "oob_count",
+                 "misrouted"):
+        require(int(getattr(aux, name)) == 0, f"{what}: {name} = {int(getattr(aux, name))}")
+    require(int(aux.num_particles) == n, f"{what}: {int(aux.num_particles)} particles")
+
+
+def dist_rank(comm, payload: dict) -> None:
+    """One of phase 10c's ranks (a process of its own on the one card):
+    20 sharded steps from grid init, then the checks of the module
+    docstring; writes its numbers to `payload["out"]/rank<r>.json`."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.core.init import init_state
+    from tpusph_torch.dist import sharded
+    from tpusph_torch.kernels import fused, qrank
+    from tpusph_torch.neighbors.cell_list import starts_from_sorted
+    from tpusph_torch.physics.kernels import pressure_from_density
+
+    n = payload["n"]
+    cfg = tuned_config(n)
+    dcfg = sharded.DistConfig(**payload["dcfg"])
+    dev = comm.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    kernels = (qrank.rank_queries, fused.density, fused.force)
+    state = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
+    occupancy = int(state.valid.sum())
+    step = sharded.make_sharded_step(cfg, dcfg, comm)
+    state, _ = step(state)  # warm-up: loads the library, fills the caches
+    state = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
+
+    # time spent inside the exchanges, the card drained before each so that
+    # the wait for the kernels queued ahead is not charged to them
+    exchange, spent = comm.exchange, [0.0]
+
+    def timed_exchange(up, dn):
+        sync()
+        t0 = time.perf_counter()
+        out = exchange(up, dn)
+        sync()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    comm.exchange = timed_exchange
+    for fn in kernels:
+        fn.launches = 0
+    auxs = []
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(DIST_STEPS):
+        state, aux = step(state)
+        auxs.append(aux)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+    comm.exchange = exchange
+    for k, aux in enumerate(auxs):
+        hold_clean(aux, n, f"rank {comm.rank} step {k}")
+        require(int(aux.max_halo_send) > 0, f"step {k}: empty halos on every rank")
+    for name, count in zip(("rank", "density", "force"), launches):
+        require(count == DIST_STEPS,
+                f"rank {comm.rank}: {name} launched {count} times in {DIST_STEPS} steps")
+
+    got = sharded.collect_state(state, n, comm)
+    want = np.load(payload["reference"])
+    require(not np.isnan(got["position"]).any(), "a particle is on no rank")
+    np.testing.assert_allclose(got["position"], want, rtol=0, atol=1e-4)
+
+    # this rank's combined rows at step 20, ghosts on its faces: the three
+    # kernels against their plain versions at phase 3's bars
+    key, x, y, z, vx, vy, vz, tag, _ovf, _oob, halo_send = sharded._device_build(
+        *state, cfg, dcfg, comm)
+    require(int(halo_send) > 0, f"rank {comm.rank} sent an empty halo")
+    live_ghost = (tag == -2) & (key < cfg.num_cells)
+    first_local = int((tag >= 0).nonzero()[0])
+    ghosts = (int(live_ghost[:first_local].sum()), int(live_ghost[first_local:].sum()))
+    require(ghosts[0] > 0 or comm.rank == 0, f"rank {comm.rank}: no ghost rows below")
+    require(ghosts[1] > 0 or comm.rank == comm.size - 1, f"rank {comm.rank}: no ghost rows above")
+    starts, _ = starts_from_sorted(key, cfg)
+    cells = torch.arange(cfg.num_cells + 2, dtype=torch.int32, device=dev)
+    torch.testing.assert_close(starts, qrank.rank_queries_plain(key, cells, cfg.num_cells),
+                               rtol=0, atol=0)
+    dk = fused.density(x, y, z, key, starts, cfg)
+    dp = fused.density_plain(x, y, z, key, starts, cfg)
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=0)
+    rho, p = pressure_from_density(dk, cfg)
+    valid = key < cfg.num_cells
+    rho, p = torch.where(valid, rho, 1.0), torch.where(valid, p, 0.0)
+    fk = fused.force(x, y, z, vx, vy, vz, rho, p, key, starts, cfg)
+    fp = fused.force_plain(x, y, z, vx, vy, vz, rho, p, key, starts, cfg)
+    torch.testing.assert_close(fk, fp, rtol=1e-4, atol=1e-4)
+    with open(os.path.join(payload["out"], f"rank{comm.rank}.json"), "w") as f:
+        json.dump({
+            "rank": comm.rank, "occupancy": occupancy, "rows": key.numel(),
+            "ghosts_below": ghosts[0], "ghosts_above": ghosts[1],
+            "halo_send": int(halo_send), "launches": launches,
+            "ms_per_step": wall / DIST_STEPS * 1e3,
+            "exchange_ms_per_step": spent[0] / DIST_STEPS * 1e3,
+            "max_halo_send": max(int(a.max_halo_send) for a in auxs),
+            "max_migration_send": max(int(a.max_migration_send) for a in auxs),
+            "max_dev_particles": max(int(a.max_dev_particles) for a in auxs),
+            "density_max_abs_err": float((dk - dp).abs().max()),
+            "force_max_abs_err": float((fk - fp).abs().max()),
+        }, f)
+
+
+def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: float, dev) -> dict:
+    """Phase 10 (see the module docstring). `reference` is the state after
+    20 `step_kernels` steps from grid init. Returns the dist path's
+    launches a step and rank by kernel."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.core.init import grid_positions, init_state
+    from tpusph_torch.dist import sharded
+    from tpusph_torch.dist.comm import SlabComm, spawn_ranks
+    from tpusph_torch.engine.step import fields_from_state
+
+    cfg = tuned_config(N_MAIN)
+    names = ("rank", "density", "force")
+    ref_fields = fields_from_state(reference)
+    whole = init_state(cfg, device="cpu")
+    comm = SlabComm(dev)
+    rates, per_step = {}, {}
+    # a. one rank, elided; b. one rank through the whole machinery
+    for label, full, caps in (("elided", "0", (8, 8)),
+                              ("full machinery", "1", (DIST_HALO_ONE_CARD, DIST_MIGRATION))):
+        os.environ["TPUSPH_DIST_FULL_MACHINERY"] = full
+        try:
+            dcfg = sharded.DistConfig(1, cfg.padded_num_particles, *caps)
+            require(sharded._elide_single(dcfg) == (full == "0"), "the machinery switch")
+            step = sharded.make_sharded_step(cfg, dcfg, comm)
+            run = sharded.make_sharded_run(cfg, dcfg, comm, CHAIN_STEPS)
+            start = sharded.distribute_state(whole, cfg, dcfg, comm)
+            state = start
+            for fn in kernels:
+                fn.launches = 0
+            for k in range(DIST_STEPS):
+                state, aux = step(state)
+                hold_clean(aux, N_MAIN, f"one rank, {label}, step {k}")
+            per_step[label] = {n: fn.launches / DIST_STEPS for n, fn in zip(names, kernels)}
+            for name, n in per_step[label].items():
+                require(n == 1, f"one rank, {label}: {name} launched {n} times a step")
+            pa, pb = hold_multisets(cfg, fields_of_block(state), ref_fields)
+            run(start)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, aux = run(start)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            hold_clean(aux, N_MAIN, f"one rank, {label}, {CHAIN_STEPS}-step run")
+            require(torch.isfinite(out.position).all(), "non-finite positions")
+            rates[label] = CHAIN_STEPS / wall
+            rows = cfg.padded_num_particles + (0 if full == "0" else 2 * caps[0])
+            print(f"sharded one rank, {label}: {DIST_STEPS} steps match {DIST_STEPS} "
+                  f"step_kernels steps (density rtol 1e-4, positions atol 1e-4, multisets; "
+                  f"max|dpos| {np.abs(pa - pb).max():.3e}), counters clean, {rows} rows, launches "
+                  f"a step {per_step[label]}; {rates[label]:.3f} timesteps/s "
+                  f"({CHAIN_STEPS} eager steps, {wall * 1e3:.3f} ms) beside simulate_and_time "
+                  f"{timed_rate:.3f} (phase 5) and the chained graph {chain_rate:.3f} (phase 8); "
+                  f"{card}")
+        finally:
+            os.environ.pop("TPUSPH_DIST_FULL_MACHINERY", None)
+
+    # c. four ranks on the one card
+    z = grid_positions(cfg)[:, 2]
+    planes = sharded.balanced_slab_planes(z, cfg, DIST_RANKS)
+    zc = np.clip((z / np.float32(cfg.h)).astype(np.int32), 0, cfg.num_cells_per_dim - 1)
+    per_plane = np.bincount(zc, minlength=cfg.num_cells_per_dim)
+    occupancy = [int(per_plane[a:b].sum()) for a, b in zip(planes, planes[1:])]
+    bands = [int(per_plane[a:a + 2].sum()) for a in planes[:-1]]
+    bands += [int(per_plane[b - 2:b].sum()) for b in planes[1:]]
+    up8 = lambda v: -(-int(v) // 8) * 8
+    caps = dict(n_devices=DIST_RANKS, dev_capacity=up8(1.25 * max(occupancy)),
+                halo_capacity=up8(1.5 * max(bands)), migration_capacity=DIST_MIGRATION,
+                slab_planes=planes)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host, no network
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "reference.npy")
+        np.save(ref_path, reference.position[:N_MAIN].cpu().numpy())
+        payload = {"n": N_MAIN, "dcfg": caps, "reference": ref_path, "out": tmp}
+        t0 = time.perf_counter()
+        spawn_ranks(dist_rank, DIST_RANKS, f"file://{tmp}/store", dev, (payload,),
+                    deadline_s=DIST_DEADLINE_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    require([r["rank"] for r in ranks] == list(range(DIST_RANKS)), "a rank did not report")
+    print(f"sharded {DIST_RANKS} ranks on one card: planes {planes}, occupancy {occupancy}, "
+          f"capacities dev {caps['dev_capacity']} halo {caps['halo_capacity']} migration "
+          f"{caps['migration_capacity']}; {DIST_STEPS} steps, collected positions within 1e-4 of "
+          f"{DIST_STEPS} step_kernels steps, counters clean; spawn to join {spawn_s:.1f} s")
+    for r in ranks:
+        print(f"  rank {r['rank']}: {r['occupancy']} particles, {r['rows']} combined rows, "
+              f"ghosts below/above {r['ghosts_below']}/{r['ghosts_above']}, halo rows sent "
+              f"{r['halo_send']}, launches (rank, density, force) {r['launches']}, rank exact, "
+              f"density max err {r['density_max_abs_err']:.3e} (rtol 1e-5), force "
+              f"{r['force_max_abs_err']:.3e} (rtol 1e-4 atol 1e-4), {r['ms_per_step']:.3f} ms a "
+              f"step of which {r['exchange_ms_per_step']:.3f} ms inside the two exchanges "
+              f"({r['exchange_ms_per_step'] / r['ms_per_step']:.3f})")
+    slowest = max(r["ms_per_step"] for r in ranks)
+    print(f"sharded {DIST_RANKS} ranks: {slowest:.3f} ms a step ({1e3 / slowest:.3f} timesteps/s) "
+          f"on the slowest rank. The four ranks time-share one card and exchange through host "
+          f"memory (gloo): this is a check of correctness, not a scaling figure; {card}")
+    return {
+        n: {"one_rank_per_step": per_step["elided"][n],
+            "full_machinery_per_step": per_step["full machinery"][n],
+            "four_ranks": [r["launches"][i] for r in ranks], "steps": DIST_STEPS}
+        for i, n in enumerate(names)
+    }
+
+
 def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> dict:
     """Phase 8 (see the module docstring). Returns each kernel's launches
     in one replay of the 100-step chain."""
@@ -427,9 +811,6 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
     from tpusph_torch.core.init import init_state
     from tpusph_torch.engine.simulator import Simulator
     from tpusph_torch.engine.step import fields_from_state, make_fields_chain, make_step
-    from tpusph_torch.kernels import fused
-    from tpusph_torch.neighbors.cell_list import build_sorted_fields_1d
-    from tpusph_torch.physics.kernels import pressure_from_density
     from tpusph_torch.viz.project import project_bitmap, project_pixels_packed
 
     from torch.autograd import DeviceType
@@ -500,35 +881,7 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
     st = st0
     for _ in range(CHAIN_PARITY_STEPS):
         st, _ = step(st)
-    def particles(fs):
-        """(positions, density) of the live particles of a fields state,
-        the density from one pass of the density kernel over it."""
-        sf = build_sorted_fields_1d(*fs, cfg)
-        rho, _ = pressure_from_density(
-            fused.density(sf.x, sf.y, sf.z, sf.key_sorted, sf.starts, cfg), cfg)
-        v = sf.valid_sorted
-        pos = torch.stack([sf.x, sf.y, sf.z], dim=1)[v]
-        return pos.cpu().numpy(), rho[v].cpu().numpy()
-
-    # A multiset compare by nearest neighbour: at 262,144 many particles
-    # share a lattice coordinate, so a lexicographic order can pair other
-    # particles once rounding splits a tie, and ~5,000 sit on another
-    # particle exactly after 20 steps, so a one-to-one pairing does not
-    # exist. Each run's particles lie within 1e-4 of the other run's, each
-    # coordinate's sorted values agree within 1e-4 (multiplicities), and
-    # the density at paired positions within rtol 1e-4.
-    from scipy.spatial import cKDTree
-
-    pa, ra = particles(fs20)
-    pb, rb = particles(fields_from_state(st))
-    require(len(pa) == len(pb) == N_MAIN, "the fields chain lost particles")
-    _, match = cKDTree(pb).query(pa)
-    _, back = cKDTree(pa).query(pb)
-    np.testing.assert_allclose(pa, pb[match], rtol=0, atol=1e-4)
-    np.testing.assert_allclose(pb, pa[back], rtol=0, atol=1e-4)
-    np.testing.assert_allclose(np.sort(pa, axis=0), np.sort(pb, axis=0), rtol=0, atol=1e-4)
-    np.testing.assert_allclose(ra, rb[match], rtol=1e-4, atol=0)
-    pb = pb[match]
+    pa, pb = hold_multisets(cfg, fs20, fields_from_state(st))
     chain = make_fields_chain(cfg, CHAIN_STEPS, dev)
     t0 = time.perf_counter()
     chain(fs0)  # capture (warm-up run included) and the first replay
@@ -635,7 +988,7 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
           f"{CHUNK_FRAMES} frames, {chunk_s:.3f} s, {chunk_s / CHUNK_FRAMES * 1e3:.2f} ms "
           f"per frame with set-up and capture, beside {free_ms:.2f} unchunked (phase 7); "
           f"launches {chunk_launches}; {card}")
-    return chain_launches
+    return chain_launches, st, rate
 
 
 def main() -> int:
@@ -671,6 +1024,14 @@ def main() -> int:
     path, build_s = cuda_build.build()
     cuda_build.library()
     print(f"build: {build_s:.2f} s -> {os.path.relpath(path, REPO)}")
+    # the host library too (g++), so that free mode's first frame does not
+    # pay for it; phase 9 holds its raster against numpy's
+    from tpusph_torch.utils import native
+
+    t0 = time.perf_counter()
+    require(native.get_lib() is not None, "the native host library did not build or load")
+    print(f"build: native host library {time.perf_counter() - t0:.2f} s -> "
+          f"{os.path.relpath(native.library_path(), REPO)}")
     log = path.with_suffix(".log")
     kernel = None
     for line in log.read_text().splitlines() if log.exists() else []:
@@ -738,6 +1099,7 @@ def main() -> int:
     for f in ("position", "velocity", "force", "density", "pressure"):
         require(torch.isfinite(getattr(sim.state, f)).all(), f"non-finite {f}")
     pos = sim.get_position()
+    main_state = sim.state
     require(pos.shape == (N_MAIN, 3) and np.isfinite(pos).all(), "bad host positions")
     lo, hi = cfg.h, cfg.box_dim - cfg.h
     require(pos.min() >= lo - 1e-6 and pos.max() <= hi + 1e-6, "particle outside the box")
@@ -1104,6 +1466,18 @@ def main() -> int:
             with open(os.path.join(frames_dir, name), "rb") as f:
                 require(f.read(8) == b"\x89PNG\r\n\x1a\n", f"{name} is not a PNG")
         state, _ = load_state(ckpt, "cpu")
+        # the same frames as a GIF by the stdlib writer (what --gif runs
+        # after the frame dump where PIL is absent), outside the timed command
+        from tpusph_torch.viz.render import read_png, write_gif
+
+        t0 = time.perf_counter()
+        write_gif((read_png(os.path.join(frames_dir, name)) for name in pngs),
+                  os.path.join(tmp, "free.gif"))
+        gif_s = time.perf_counter() - t0
+        gif_frames = gif_frame_count(os.path.join(tmp, "free.gif"))
+        gif_bytes = os.path.getsize(os.path.join(tmp, "free.gif"))
+    print(f"free mode frames as a GIF: {gif_frames} frames, {gif_bytes} bytes, {gif_s:.3f} s "
+          f"on the host")
     print(f"launches in free mode: {free_launches}")
     for name, n in free_launches.items():
         require(n > 0, f"{name} kernel was not launched by free mode")
@@ -1119,10 +1493,15 @@ def main() -> int:
           f"{free_s:.3f} s, {free_ms:.2f} ms per frame with set-up "
           f"and save ({card})")
 
-    replay_launches = chained_loop(card, kernels, timed_rate, free_ms, dev)
+    replay_launches, reference, chain_rate = chained_loop(card, kernels, timed_rate, free_ms, dev)
+
+    remainder_phase(card, main_state, gif_frames, dev)
+    dist_launches = dist_phase(card, kernels, reference, timed_rate, chain_rate, dev)
 
     for name, r in results.items():
         r["launches_per_replay"] = replay_launches.get(name, 0)
+        if name in dist_launches:
+            r["dist_launches"] = dist_launches[name]
         r.setdefault("baseline_ms", None)
         r.setdefault("library_ms", None)
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
@@ -1134,7 +1513,7 @@ def main() -> int:
          **{k: r[k] for k in ("max_abs_diff_baseline", "by_step", "issue_ceiling_ms",
                               "sass_instructions_per_round", "sass_loads_per_round",
                               "best_load_bytes_per_clock_per_sm", "rates", "turns",
-                              "device_ms", "baseline_device_ms")
+                              "device_ms", "baseline_device_ms", "dist_launches")
             if k in r}}
         for name, r in results.items()
     ]

@@ -263,10 +263,17 @@ def test_unknown_backend_lists_the_names():
         make_step(tdefault(N), "mosaic", "cpu")
 
 
-def test_free_mode_refuses_what_is_not_ported():
+def test_free_mode_refuses_what_is_not_ported(monkeypatch, capsys):
+    """Nothing of free mode is refused any more: frames=0 is the
+    interactive window, which without a display prints tpusph's hint and
+    returns, the state untouched."""
     _, ts = _pair()
-    with pytest.raises(NotImplementedError):
-        render.run_free_mode(ts, frames=0)
+    before = ts.get_position().copy()
+    monkeypatch.delenv("DISPLAY", raising=False)
+    render.run_free_mode(ts, frames=0)
+    out = capsys.readouterr().out
+    assert "No interactive display" in out and "--frames" in out
+    np.testing.assert_array_equal(ts.get_position(), before)
 
 
 def test_cli_free_mode_writes_frames(tmp_path, capsys):

@@ -1,0 +1,275 @@
+"""What every rank of `tests/test_torch_dist.py` runs. It lives in a
+module of its own, with no JAX import, because `spawn_ranks` starts fresh
+processes that import the module of the function they are given.
+
+`make_cases` builds, in the parent, the whole states the ranks start from
+and the single-process results they are held against (numpy arrays, so
+they pickle). `rank_checks(comm, cases)` is one rank's share of all the
+checks of its rank count; a failing assert in any rank fails the spawn.
+"""
+
+from __future__ import annotations
+
+import types
+
+import numpy as np
+import torch
+
+from tpusph_torch.core.config import BOX_MAX_Y, BOX_MIN_X, default_config
+from tpusph_torch.core.init import init_state
+from tpusph_torch.core.state import FluidState, dist_state_from_numpy
+from tpusph_torch.dist.sharded import (
+    DistAux,
+    DistConfig,
+    DistState,
+    balanced_slab_planes,
+    collect_state,
+    distribute_state,
+    make_sharded_run,
+    make_sharded_step,
+    make_sharded_timed,
+)
+from tpusph_torch.engine.step import make_step
+from tpusph_torch.interact.impulse import make_impulse
+
+# the reference's bars (tests/test_dist.py:71-72)
+POS = dict(rtol=1e-4, atol=1e-4)
+VEL = dict(rtol=1e-3, atol=1e-3)
+OVERFLOWS = ("halo_overflow", "migration_overflow", "window_overflow", "misrouted")
+# a click at the box's lower left corner: cell (0, 1), next to the grid
+# state's particles (cells x = 1, y = 1 .. 9)
+CLICK = (BOX_MIN_X + 1, BOX_MAX_Y - 1)
+CLICK_STEP = 1
+
+
+def sparse_cfg():
+    """The reference's fixture (tests/test_dist.py:31-33): 512 particles,
+    random init seed 13. They are too sparse to interact."""
+    return default_config(512, chunk_size=512)
+
+
+def dense_cfg():
+    """1,024 particles of the grid init: one x-plane of the 0.9h lattice,
+    10 rows in y and the box's whole depth in z, so every slab has
+    neighbours across both of its faces."""
+    return default_config(1024, chunk_size=1024)
+
+
+def _as_numpy(state: FluidState) -> dict:
+    return {f: getattr(state, f).numpy() for f in ("position", "velocity", "valid")}
+
+
+def _as_state(arrays: dict):
+    return types.SimpleNamespace(**{k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
+def drifting(arrays: dict) -> dict:
+    """±3 z drift, so that particles cross slab faces (tests/test_dist.py:85-88)."""
+    vel = np.zeros_like(arrays["velocity"])
+    vel[:, 2] = np.where(np.arange(len(vel)) % 2 == 0, 3.0, -3.0)
+    return dict(arrays, velocity=vel)
+
+
+def single_process(cfg, arrays: dict, steps: int, click_at=None) -> dict:
+    """{position, velocity} of the live particles after `steps` steps of
+    the port's own `step_cell_list`, with CLICK after step `click_at`."""
+    n = cfg.padded_num_particles
+    z3, z1 = torch.zeros((n, 3)), torch.zeros(n)
+    state = FluidState(
+        torch.from_numpy(arrays["position"].copy()), torch.from_numpy(arrays["velocity"].copy()),
+        z3, z1, z1, torch.from_numpy(arrays["valid"].copy()),
+    )
+    step, impulse = make_step(cfg, "cell_list", "cpu"), make_impulse(cfg)
+    for k in range(steps):
+        pre = state.position
+        state, _ = step(state)
+        if k == click_at:
+            state = impulse(state, pre, CLICK)
+    m = cfg.num_particles
+    return {"position": state.position.numpy()[:m], "velocity": state.velocity.numpy()[:m]}
+
+
+def make_cases() -> dict:
+    sparse, dense = sparse_cfg(), dense_cfg()
+    rand = _as_numpy(init_state(sparse, random_init=True, seed=13, device="cpu"))
+    grid = _as_numpy(init_state(dense, device="cpu"))
+    return {
+        "rand": rand,
+        "rand10": single_process(sparse, rand, 10),
+        "drift": drifting(rand),
+        "drift20": single_process(sparse, drifting(rand), 20),
+        "grid": grid,
+        "grid10": single_process(dense, grid, 10),
+        "grid_click": single_process(dense, grid, 3, click_at=CLICK_STEP),
+        "grid3": single_process(dense, grid, 3),
+    }
+
+
+def _clean(aux: DistAux, n: int) -> None:
+    for name in OVERFLOWS:
+        assert int(getattr(aux, name)) == 0, (name, aux)
+    assert int(aux.num_particles) == n, aux
+
+
+def _close(got: dict, want: dict) -> None:
+    assert not np.isnan(got["position"]).any()  # every particle accounted for
+    np.testing.assert_allclose(got["position"], want["position"], **POS)
+    np.testing.assert_allclose(got["velocity"], want["velocity"], **VEL)
+
+
+def _dcfg(comm, cfg, **over) -> DistConfig:
+    base = dict(
+        n_devices=comm.size, dev_capacity=cfg.padded_num_particles, halo_capacity=256,
+        migration_capacity=128,
+    )
+    return DistConfig(**{**base, **over})
+
+
+def _advance(step, state, steps: int):
+    aux = None
+    for _ in range(steps):
+        state, aux = step(state)
+    return state, aux
+
+
+def _same(a: DistState, b: DistState) -> None:
+    for x, y, name in zip(a, b, DistState._fields):
+        assert torch.equal(x, y), name
+
+
+def rank_checks(comm, cases: dict) -> None:
+    sparse, dense = sparse_cfg(), dense_cfg()
+    D = comm.size
+
+    # ---- 10 steps against the single process, then conservation over 20
+    for cfg, name in ((sparse, "rand"), (dense, "grid")):
+        dcfg = _dcfg(comm, cfg)
+        step = make_sharded_step(cfg, dcfg, comm)
+        state = distribute_state(_as_state(cases[name]), cfg, dcfg, comm)
+        assert int(state.valid.sum()) < cfg.num_particles or D == 1  # really split
+        state, aux = _advance(step, state, 10)
+        _clean(aux, cfg.num_particles)
+        _close(collect_state(state, cfg.num_particles, comm), cases[name + "10"])
+        pid = state.pid[state.valid]
+        assert pid.unique().numel() == pid.numel() and int(pid.min()) >= 0
+        if name == "grid":
+            assert int(aux.max_halo_send) > 0  # the halos are not empty
+        state, aux = _advance(step, state, 10)
+        _clean(aux, cfg.num_particles)
+
+    # ---- migration: with the z drift some pid changes rank, and the
+    # physics still matches the single process
+    dcfg = _dcfg(comm, sparse)
+    step = make_sharded_step(sparse, dcfg, comm)
+    state = distribute_state(_as_state(cases["drift"]), sparse, dcfg, comm)
+    home = set(state.pid[state.valid].tolist())
+    sent = 0
+    for _ in range(20):
+        state, aux = step(state)
+        _clean(aux, sparse.num_particles)
+        sent = max(sent, int(aux.max_migration_send))
+    assert sent > 0
+    arrived = set(state.pid[state.valid].tolist()) - home
+    (moved,), _ = comm.reduce([len(arrived)], [0])
+    assert int(moved) > 0  # some particle lives on another rank now
+    _close(collect_state(state, sparse.num_particles, comm), cases["drift20"])
+
+    if D == 4:
+        # ---- balanced planes: the splice path at planes that do not
+        # divide the box evenly
+        for cfg, name in ((sparse, "rand"), (dense, "grid")):
+            planes = balanced_slab_planes(cases[name]["position"][:, 2], cfg, D)
+            if name == "rand":
+                assert planes != tuple(range(0, 101, 25))
+            dcfg = _dcfg(comm, cfg, slab_planes=planes)
+            step = make_sharded_step(cfg, dcfg, comm)
+            state = distribute_state(_as_state(cases[name]), cfg, dcfg, comm)
+            state, aux = _advance(step, state, 10)
+            _clean(aux, cfg.num_particles)
+            _close(collect_state(state, cfg.num_particles, comm), cases[name + "10"])
+        # and under migration
+        planes = balanced_slab_planes(cases["drift"]["position"][:, 2], sparse, D)
+        dcfg = _dcfg(comm, sparse, slab_planes=planes)
+        step = make_sharded_step(sparse, dcfg, comm)
+        state = distribute_state(_as_state(cases["drift"]), sparse, dcfg, comm)
+        state, aux = _advance(step, state, 20)
+        _clean(aux, sparse.num_particles)
+        _close(collect_state(state, sparse.num_particles, comm), cases["drift20"])
+
+    if D == 2:
+        dcfg = _dcfg(comm, dense)
+        start = distribute_state(_as_state(cases["grid"]), dense, dcfg, comm)
+        step = make_sharded_step(dense, dcfg, comm)
+
+        # ---- the other backend: the tile passes (everything else here runs
+        # `kernels`, on the CPU the kernels' plain versions)
+        tstate, taux = _advance(make_sharded_step(dense, dcfg, comm, "cell_list"), start, 3)
+        _clean(taux, dense.num_particles)
+        _close(collect_state(tstate, dense.num_particles, comm), cases["grid3"])
+
+        # ---- make_sharded_run(5) is five steps
+        five, aux5 = _advance(step, start, 5)
+        ran, aux_run = make_sharded_run(dense, dcfg, comm, 5)(start)
+        _same(ran, five)
+        _clean(aux_run, dense.num_particles)
+        assert int(aux_run.max_halo_send) == int(aux5.max_halo_send) > 0
+
+        # ---- the two timed phases are one step without a click
+        build, update = make_sharded_timed(dense, dcfg, comm)
+        one, aux1 = step(start)
+        timed, aux_t = update(*build(start))
+        _same(timed, one)
+        assert [int(a) for a in aux_t] == [int(a) for a in aux1]
+
+        # ---- a click is the single process's click
+        state = start
+        for k in range(3):
+            state, aux = step(state, click_px=CLICK if k == CLICK_STEP else None)
+        _clean(aux, dense.num_particles)
+        got = collect_state(state, dense.num_particles, comm)
+        _close(got, cases["grid_click"])
+        assert np.abs(got["velocity"] - cases["grid3"]["velocity"]).max() > 1.0
+        state = start
+        for k in range(3):
+            state, _ = step(state, click_px=CLICK, click_active=False)
+        _close(collect_state(state, dense.num_particles, comm), cases["grid3"])
+
+        # ---- a halo buffer that is too small is reported, nothing raises
+        small = _dcfg(comm, dense, halo_capacity=8)
+        state = distribute_state(_as_state(cases["grid"]), dense, small, comm)
+        total = 0
+        for _ in range(3):
+            state, aux = make_sharded_step(dense, small, comm)(state)
+            total += int(aux.halo_overflow)
+        assert total > 0
+        # likewise migration buffers
+        tight = _dcfg(comm, sparse, migration_capacity=8)
+        fast = dict(cases["drift"], velocity=cases["drift"]["velocity"] * 100)
+        state = distribute_state(_as_state(fast), sparse, tight, comm)
+        state, aux = make_sharded_step(sparse, tight, comm)(state)
+        assert int(aux.migration_overflow) > 0
+
+
+def jax_checks(comm, payload: dict) -> None:
+    """Two ranks against the JAX package's sharded step: the same
+    distributed state in, per rank the same live rows and the same nine
+    counters out after every step."""
+    cfg = sparse_cfg()
+    dcfg = DistConfig(**payload["dcfg"])
+    state = dist_state_from_numpy(payload["start"], comm.rank, dcfg, "cpu")
+    step = make_sharded_step(cfg, dcfg, comm, "cell_list")
+    halo = migrated = 0
+    for want, want_aux in zip(payload["states"], payload["auxs"]):
+        state, aux = step(state)
+        assert [int(a) for a in aux] == want_aux, (aux, want_aux)
+        halo, migrated = halo + int(aux.max_halo_send), migrated + int(aux.max_migration_send)
+        ref = dist_state_from_numpy(want, comm.rank, dcfg, "cpu")
+        assert int(state.valid.sum()) == int(ref.valid.sum())
+
+        def live_rows(s):
+            order = torch.argsort(s.pid[s.valid])
+            return [a[s.valid][order].numpy() for a in (s.pid, s.position, s.velocity)]
+
+        for got, exp in zip(live_rows(state), live_rows(ref)):
+            np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-6)
+    assert halo > 0 and migrated > 0

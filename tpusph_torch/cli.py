@@ -4,8 +4,10 @@
 
 Counterpart of `tpusph/cli.py`: the same defaults (N=1000, grid init,
 time mode), the same usage text and the same 100-step timed run printing
-the Times table. Free mode is the headless frame dump of `--frames N`
-(`--out DIR`, scripted clicks `--click frame:px,py`, repeatable).
+the Times table. Free mode is the interactive window (a hint and exit code
+0 where there is no display) or, with `--frames N`, the headless frame
+dump (`--out DIR`, scripted clicks `--click frame:px,py`, repeatable,
+`--gif PATH` to assemble the frames into an animated GIF).
 `--save PATH` checkpoints the final state and `--load PATH` resumes one,
 in the `.npz` format both packages read. Extra flags: --steps, --warmup,
 --seed, --device (default cuda), --backend (kernels, the default, also
@@ -17,10 +19,9 @@ Not every tpusph command line runs here. Flags of `tpusph/cli.py` that are
 not taken (argparse rejects them: the usage text, exit code 1):
 --stencil, --pallas-col-capacity, --pallas-sub-blocks and --window-capacity
 size the Pallas kernels' stencil decomposition, candidate buffers and window
-prep, which the CUDA kernels do without (they walk each window to its end);
---gif waits for the GIF assembly of the free-mode module. --mesh is parsed
-and exits with code 2 until the sharded engine is ported, as `-m free`
-without `--frames` does until the interactive window is.
+prep, which the CUDA kernels do without (they walk each window to its end).
+--mesh is parsed and exits with code 2 until the sharded engine's
+simulator is ported.
 """
 
 from __future__ import annotations
@@ -89,6 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--profile", type=str, default=None, metavar="DIR",
         help="timed mode: write a torch.profiler Chrome trace of the timed steps to DIR",
+    )
+    p.add_argument(
+        "--gif", type=str, default=None,
+        help="free mode with --frames: also assemble frames into this GIF",
     )
     p.add_argument("--mesh", type=str, default=None, help=NOT_PORTED)
     return p
@@ -190,15 +195,14 @@ def main(argv: list[str] | None = None) -> int:
                 sim.simulate_and_time(times)
         display_times(times)
     else:
-        from tpusph_torch.viz.render import run_free_mode
+        from tpusph_torch.viz.render import frames_to_gif, run_free_mode
 
-        try:
-            run_free_mode(
-                sim, frames=args.frames, out_dir=args.out, clicks=clicks, chunk=args.viz_chunk
-            )
-        except NotImplementedError as e:
-            print(f"sph: {e}", file=sys.stderr)
-            return 2
+        run_free_mode(
+            sim, frames=args.frames, out_dir=args.out, clicks=clicks, chunk=args.viz_chunk
+        )
+        if args.gif and args.frames > 0:
+            frames_to_gif(args.out, args.gif)
+            print(f"wrote {args.gif}")
 
     if args.save is not None:
         save_state(args.save, sim.state, sim.cfg)

@@ -6,7 +6,9 @@ Counterpart of `tpusph/core/init.py`:
   * random: uniform in [1, box_dim-1]³ from a seeded `torch.Generator`.
     It cannot reproduce the JAX package's `jax.random` draws; to run both
     packages on one random state, build it in one and carry it across
-    with `state_from_numpy`.
+    with `state_from_numpy`. `reference_rng=True` replays the CUDA
+    original's libc `rand()` placement through the native library, the
+    same bits in both packages.
 """
 
 from __future__ import annotations
@@ -51,10 +53,21 @@ def lattice_capacity(cfg: SimConfig) -> int:
     return _lattice_nx(cfg) ** 3
 
 
-def random_positions(cfg: SimConfig, seed: int = 0) -> torch.Tensor:
+def random_positions(
+    cfg: SimConfig, seed: int = 0, reference_rng: bool = False
+) -> torch.Tensor:
     """Uniform in [1, box_dim-1]³ (simulator.cu:430-437), drawn on the CPU
     from a generator seeded with `seed`, so every device gets the same
-    positions."""
+    positions. With reference_rng=True the native library replays the
+    reference's libc `rand()` sequence bit for bit (seed 1 is glibc's
+    default, the unseeded reference's); without the library the draw falls
+    back to the generator, as tpusph's does to its own."""
+    if reference_rng:
+        from tpusph_torch.utils.native import reference_random_positions
+
+        pos = reference_random_positions(cfg.num_particles, cfg.box_dim, seed=max(seed, 1))
+        if pos is not None:
+            return torch.from_numpy(pos)
     gen = torch.Generator().manual_seed(seed)
     u = torch.rand((cfg.num_particles, 3), generator=gen, dtype=torch.float32)
     return u * (cfg.box_dim - 2.0) + 1.0

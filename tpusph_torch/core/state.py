@@ -84,3 +84,20 @@ def state_from_numpy(arrays, device) -> FluidState:
 
 def state_to_numpy(state: FluidState) -> dict[str, np.ndarray]:
     return {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+
+
+def dist_state_from_numpy(arrays, rank: int, dcfg, device):
+    """Rank `rank`'s block, a `dist.sharded.DistState` on `device`, of a
+    distributed state given whole: `arrays` maps position, velocity, valid
+    and pid to numpy arrays of `n_devices · dev_capacity` rows, block after
+    block (for example the JAX package's `DistState` after `np.asarray`).
+    The arrays are copied."""
+    from tpusph_torch.dist.sharded import DistState
+
+    rows = slice(rank * dcfg.dev_capacity, (rank + 1) * dcfg.dev_capacity)
+    return DistState(
+        *(
+            torch.from_numpy(np.array(arrays[f][rows], copy=True)).to(device)
+            for f in DistState._fields
+        )
+    )
