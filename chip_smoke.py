@@ -129,7 +129,32 @@ Phases, each of which raises on failure (exit code 1):
         faces) rank exact, density rtol 1e-5, force rtol 1e-4 atol 1e-4
         against their plain versions; ms a step and the share spent inside
         the exchanges. Four ranks time-share one card: a check of
-        correctness, not a scaling figure.
+        correctness, not a scaling figure. Also the operations a step on
+        the card (profiler) of 10a and 10b;
+ 11. the brick engine (`tpusph_torch/dist/mesh3d.py`) at 262,144, grid
+     init, backend `kernels`:
+     a. one rank as a (1, 1, 1) grid, the whole machinery with every
+        exchange returning zeros (halo rows a direction 262,144 on every
+        axis, migration 4,096): 20 `make_mesh3d_step` steps
+        against 20 `step_kernels` steps, multiset-compared as in 8b;
+        counters clean; one rank, one density and one force launch a step;
+        timesteps/s of a 100-step `make_mesh3d_run` and its operations a
+        step on the card, beside 10a and 10b;
+     b. four ranks as a (1, 2, 2) grid on the one card over gloo (the y and
+        x phases staged, corner rows forwarded), `DistSimulator` with its
+        balanced brick planes and capacities (a warm-up `run(20)` grows
+        what overflows, then grid init again): 20 `simulate()` steps, positions
+        by pid within 1e-4 of the 20 `step_kernels` steps, counters clean,
+        every rank sent halo rows along y and along x, 20 launches of each
+        kernel a rank; at step 20, on every rank's combined rows, rank
+        exact, density rtol 1e-5, force rtol 1e-4 atol 1e-4 against their
+        plain versions; ms a step and the share inside the exchanges;
+     c. the command line: `-n 262144 -m time --mesh z --save ...` and
+        `--mesh 1x1x1 --save ...` in this process, each printing the Times
+        table (timesteps/s beside phase 5's) and saving 262,144 valid,
+        finite rows inside the box; `torchrun --standalone --nproc_per_node
+        2 -m tpusph_torch -n 262144 -m time --steps 20 --mesh 1x1x2` exits 0
+        with exactly one Times table.
 The probes' bounds are their FMA (2 flops) or operation counts at 67
 TFLOP/s. Each path's kernel launch counts are set to 0 just before it and
 read just after. A wrapper counts where it launches its kernel; inside a CUDA graph
@@ -137,8 +162,8 @@ read just after. A wrapper counts where it launches its kernel; inside a CUDA gr
 (`tpusph_torch/engine/graphs.py`). It then prints one JSON line of
 per-kernel results (the main path's launches, the launches in one replay
 of the 100-step chain, and for rank, density and force the numbers at step
-20 with each state's under "by_step", the sharded path's launches under
-"dist_launches") and, last, one JSON line {"ok":
+20 with each state's under "by_step", the sharded and brick paths'
+launches under "dist_launches") and, last, one JSON line {"ok":
 true, "device": {...}}.
 """
 
@@ -176,6 +201,9 @@ DIST_RANKS = 4  # processes sharing the one card in phase 10c
 DIST_HALO_ONE_CARD = 16_384  # dead halo rows a side in phase 10b
 DIST_MIGRATION = 4096
 DIST_DEADLINE_S = 300.0
+PROFILED_STEPS = 10  # steps of the profiled run that counts a step's operations on the card
+BRICK_GRID = (1, 2, 2)  # phase 11b: four ranks, the y and x phases staged
+TORCHRUN_MESH, TORCHRUN_RANKS = "1x1x2", 2  # phase 11c
 KERNEL_STATES = (0, 20, 100)  # steps of 262,144 grid init at which phase 3 checks and times
 TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
 # H100 SXM peaks (NVIDIA's data sheet) for the bounds
@@ -599,6 +627,43 @@ def hold_clean(aux, n: int, what: str) -> None:
     require(int(aux.num_particles) == n, f"{what}: {int(aux.num_particles)} particles")
 
 
+def hold_kernels_on_rows(key, x, y, z, vx, vy, vz, cfg) -> tuple[float, float]:
+    """The rank, density and force kernels against their plain versions on
+    one rank's combined rows (ghost rows included) at phase 3's bars: rank
+    exact, density rtol 1e-5, force rtol 1e-4 atol 1e-4. Returns the
+    density's and the force's largest differences."""
+    from tpusph_torch.kernels import fused, qrank
+    from tpusph_torch.neighbors.cell_list import starts_from_sorted
+    from tpusph_torch.physics.kernels import pressure_from_density
+
+    starts, _ = starts_from_sorted(key, cfg)
+    cells = torch.arange(cfg.num_cells + 2, dtype=torch.int32, device=key.device)
+    torch.testing.assert_close(starts, qrank.rank_queries_plain(key, cells, cfg.num_cells),
+                               rtol=0, atol=0)
+    dk = fused.density(x, y, z, key, starts, cfg)
+    dp = fused.density_plain(x, y, z, key, starts, cfg)
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=0)
+    rho, p = pressure_from_density(dk, cfg)
+    valid = key < cfg.num_cells
+    rho, p = torch.where(valid, rho, 1.0), torch.where(valid, p, 0.0)
+    fk = fused.force(x, y, z, vx, vy, vz, rho, p, key, starts, cfg)
+    fp = fused.force_plain(x, y, z, vx, vy, vz, rho, p, key, starts, cfg)
+    torch.testing.assert_close(fk, fp, rtol=1e-4, atol=1e-4)
+    return float((dk - dp).abs().max()), float((fk - fp).abs().max())
+
+
+def device_ops_per_step(run, start, steps: int) -> float:
+    """Operations the card ran a step (kernels, copies and fills), counted
+    by torch.profiler over one call `run(start)` of `steps` steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(start)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / steps
+
+
 def dist_rank(comm, payload: dict) -> None:
     """One of phase 10c's ranks (a process of its own on the one card):
     20 sharded steps from grid init, then the checks of the module
@@ -607,8 +672,6 @@ def dist_rank(comm, payload: dict) -> None:
     from tpusph_torch.core.init import init_state
     from tpusph_torch.dist import sharded
     from tpusph_torch.kernels import fused, qrank
-    from tpusph_torch.neighbors.cell_list import starts_from_sorted
-    from tpusph_torch.physics.kernels import pressure_from_density
 
     n = payload["n"]
     cfg = tuned_config(n)
@@ -646,7 +709,7 @@ def dist_rank(comm, payload: dict) -> None:
     sync()
     wall = time.perf_counter() - t0
     launches = [fn.launches for fn in kernels]
-    comm.exchange = exchange
+    del comm.exchange  # the wrapper refers to comm: no cycle left behind
     for k, aux in enumerate(auxs):
         hold_clean(aux, n, f"rank {comm.rank} step {k}")
         require(int(aux.max_halo_send) > 0, f"step {k}: empty halos on every rank")
@@ -669,19 +732,7 @@ def dist_rank(comm, payload: dict) -> None:
     ghosts = (int(live_ghost[:first_local].sum()), int(live_ghost[first_local:].sum()))
     require(ghosts[0] > 0 or comm.rank == 0, f"rank {comm.rank}: no ghost rows below")
     require(ghosts[1] > 0 or comm.rank == comm.size - 1, f"rank {comm.rank}: no ghost rows above")
-    starts, _ = starts_from_sorted(key, cfg)
-    cells = torch.arange(cfg.num_cells + 2, dtype=torch.int32, device=dev)
-    torch.testing.assert_close(starts, qrank.rank_queries_plain(key, cells, cfg.num_cells),
-                               rtol=0, atol=0)
-    dk = fused.density(x, y, z, key, starts, cfg)
-    dp = fused.density_plain(x, y, z, key, starts, cfg)
-    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=0)
-    rho, p = pressure_from_density(dk, cfg)
-    valid = key < cfg.num_cells
-    rho, p = torch.where(valid, rho, 1.0), torch.where(valid, p, 0.0)
-    fk = fused.force(x, y, z, vx, vy, vz, rho, p, key, starts, cfg)
-    fp = fused.force_plain(x, y, z, vx, vy, vz, rho, p, key, starts, cfg)
-    torch.testing.assert_close(fk, fp, rtol=1e-4, atol=1e-4)
+    density_err, force_err = hold_kernels_on_rows(key, x, y, z, vx, vy, vz, cfg)
     with open(os.path.join(payload["out"], f"rank{comm.rank}.json"), "w") as f:
         json.dump({
             "rank": comm.rank, "occupancy": occupancy, "rows": key.numel(),
@@ -692,15 +743,16 @@ def dist_rank(comm, payload: dict) -> None:
             "max_halo_send": max(int(a.max_halo_send) for a in auxs),
             "max_migration_send": max(int(a.max_migration_send) for a in auxs),
             "max_dev_particles": max(int(a.max_dev_particles) for a in auxs),
-            "density_max_abs_err": float((dk - dp).abs().max()),
-            "force_max_abs_err": float((fk - fp).abs().max()),
+            "density_max_abs_err": density_err, "force_max_abs_err": force_err,
         }, f)
 
 
 def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: float, dev) -> dict:
     """Phase 10 (see the module docstring). `reference` is the state after
     20 `step_kernels` steps from grid init. Returns the dist path's
-    launches a step and rank by kernel."""
+    launches a step and rank by kernel, and one rank's timesteps/s and
+    operations a step on the card, elided and through the whole
+    machinery."""
     from tpusph_torch.core.config import tuned_config
     from tpusph_torch.core.init import grid_positions, init_state
     from tpusph_torch.dist import sharded
@@ -712,7 +764,7 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
     ref_fields = fields_from_state(reference)
     whole = init_state(cfg, device="cpu")
     comm = SlabComm(dev)
-    rates, per_step = {}, {}
+    rates, per_step, ops = {}, {}, {}
     # a. one rank, elided; b. one rank through the whole machinery
     for label, full, caps in (("elided", "0", (8, 8)),
                               ("full machinery", "1", (DIST_HALO_ONE_CARD, DIST_MIGRATION))):
@@ -742,11 +794,14 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
             hold_clean(aux, N_MAIN, f"one rank, {label}, {CHAIN_STEPS}-step run")
             require(torch.isfinite(out.position).all(), "non-finite positions")
             rates[label] = CHAIN_STEPS / wall
+            ops[label] = device_ops_per_step(
+                sharded.make_sharded_run(cfg, dcfg, comm, PROFILED_STEPS), start, PROFILED_STEPS)
             rows = cfg.padded_num_particles + (0 if full == "0" else 2 * caps[0])
             print(f"sharded one rank, {label}: {DIST_STEPS} steps match {DIST_STEPS} "
                   f"step_kernels steps (density rtol 1e-4, positions atol 1e-4, multisets; "
                   f"max|dpos| {np.abs(pa - pb).max():.3e}), counters clean, {rows} rows, launches "
-                  f"a step {per_step[label]}; {rates[label]:.3f} timesteps/s "
+                  f"a step {per_step[label]}, {ops[label]:.1f} operations a step on the card "
+                  f"(profiler); {rates[label]:.3f} timesteps/s "
                   f"({CHAIN_STEPS} eager steps, {wall * 1e3:.3f} ms) beside simulate_and_time "
                   f"{timed_rate:.3f} (phase 5) and the chained graph {chain_rate:.3f} (phase 8); "
                   f"{card}")
@@ -795,12 +850,267 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
     print(f"sharded {DIST_RANKS} ranks: {slowest:.3f} ms a step ({1e3 / slowest:.3f} timesteps/s) "
           f"on the slowest rank. The four ranks time-share one card and exchange through host "
           f"memory (gloo): this is a check of correctness, not a scaling figure; {card}")
-    return {
+    launches = {
         n: {"one_rank_per_step": per_step["elided"][n],
             "full_machinery_per_step": per_step["full machinery"][n],
             "four_ranks": [r["launches"][i] for r in ranks], "steps": DIST_STEPS}
         for i, n in enumerate(names)
     }
+    return launches, {"rates": rates, "ops": ops}
+
+
+def brick_rank(comm, payload: dict) -> None:
+    """One of phase 11b's ranks (a process of its own on the one card, a
+    (1, 2, 2) brick grid): `DistSimulator` with its balanced planes and
+    capacities, a warm-up `run(20)` (which grows what overflows in those
+    steps), then grid init again and the same 20 steps by `simulate()`,
+    the checks of the module docstring; writes its numbers to
+    `payload["out"]/brick<r>.json`."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.dist import mesh3d
+    from tpusph_torch.dist.simulator import DistSimulator
+    from tpusph_torch.kernels import fused, qrank
+
+    n = payload["n"]
+    cfg = tuned_config(n)
+    dev = comm.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    kernels = (qrank.rank_queries, fused.density, fused.force)
+    sim = DistSimulator(cfg, comm, mesh_shape=BRICK_GRID, device=dev)
+    sim.setup()
+    setup_caps = sim.dcfg
+    sim.run(DIST_STEPS)  # warm-up: loads the library, fills the caches, grows what overflows
+    caps = sim.dcfg
+    sim.setup()  # grid init again, on the capacities the warm-up settled
+    occupancy = int(sim.state.valid.sum())
+    grid = sim.comm
+
+    # time inside the exchanges, the card drained before each so that the
+    # wait for the kernels queued ahead is not charged to them; halo rows
+    # sent to each peer, by the axis along which it lies, counted on the
+    # device
+    exchange, spent, sent = grid._exchange, [0.0], {0: 0, 1: 0, 2: 0}
+    my, mx = grid.shape[1:]
+
+    def timed_exchange(up, dn, below, above):
+        if len(up) == 2:  # the halo message: rows and valid lanes
+            for peer, message in ((above, up), (below, dn)):
+                if peer is not None:
+                    at = (peer // (my * mx), peer // mx % my, peer % mx)
+                    sent[next(a for a in range(3) if at[a] != grid.coords[a])] += message[1].sum()
+        sync()
+        t0 = time.perf_counter()
+        out = exchange(up, dn, below, above)
+        sync()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    grid._exchange = timed_exchange
+    for fn in kernels:
+        fn.launches = 0
+    auxs = []
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(DIST_STEPS):
+        sim.simulate()
+        auxs.append(sim.last_aux)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+    del grid._exchange  # the wrapper refers to grid: no cycle left behind
+    require(sim.dcfg == caps, f"rank {comm.rank}: capacities grew inside the counted steps")
+    for k, aux in enumerate(auxs):
+        hold_clean(aux, n, f"brick rank {comm.rank} step {k}")
+    for name, count in zip(("rank", "density", "force"), launches):
+        require(count == DIST_STEPS,
+                f"brick rank {comm.rank}: {name} launched {count} times in {DIST_STEPS} steps")
+    halo_rows = {ax: int(rows) for ax, rows in sent.items()}
+    for ax, axis in ((1, "y"), (2, "x")):
+        require(halo_rows[ax] > 0, f"brick rank {comm.rank} sent no halo rows along {axis}")
+
+    got = sim.get_position()
+    want = np.load(payload["reference"])
+    require(not np.isnan(got).any(), "a particle is on no rank")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+    # this rank's combined rows at step 20, ghosts from both of its faces
+    key, x, y, z, vx, vy, vz, tag, _ovf, _oob, halo_send = mesh3d._device_build3d(
+        *sim.state, cfg, caps, grid)
+    ghosts = int(((tag == -2) & (key < cfg.num_cells)).sum())
+    require(ghosts > 0, f"brick rank {comm.rank}: no ghost rows")
+    density_err, force_err = hold_kernels_on_rows(key, x, y, z, vx, vy, vz, cfg)
+    with open(os.path.join(payload["out"], f"brick{comm.rank}.json"), "w") as f:
+        json.dump({
+            "rank": comm.rank, "coords": list(grid.coords), "occupancy": occupancy,
+            "rows": key.numel(), "ghosts": ghosts, "halo_rows_y": halo_rows[1],
+            "halo_rows_x": halo_rows[2], "launches": launches,
+            "ms_per_step": wall / DIST_STEPS * 1e3,
+            "exchange_ms_per_step": spent[0] / DIST_STEPS * 1e3,
+            "planes": [list(p) for p in caps.axis_planes],
+            "setup_caps": [setup_caps.dev_capacity, list(setup_caps.halo_capacity),
+                           list(setup_caps.migration_capacity)],
+            "caps": [caps.dev_capacity, list(caps.halo_capacity),
+                     list(caps.migration_capacity)],
+            "max_halo_send": max(a.max_halo_send for a in auxs),
+            "max_migration_send": max(a.max_migration_send for a in auxs),
+            "density_max_abs_err": density_err, "force_max_abs_err": force_err,
+        }, f)
+
+
+def times_rate(out: str, steps: int) -> float:
+    """Timesteps/s from a printed Times table of `steps` timed steps: the
+    steps over the sum of the three phases' totals (the last column)."""
+    rows = ("Grid construction", "SPH update", "Data transfer")
+    totals = [float(line.split()[-1]) for line in out.splitlines() if line.startswith(rows)]
+    require(len(totals) == 3, "no Times table")
+    return steps / sum(totals)
+
+
+def brick_phase(card: str, kernels, reference, timed_rate: float, slab: dict, dev) -> dict:
+    """Phase 11 (see the module docstring). `reference` is the state after
+    20 `step_kernels` steps from grid init, `slab` phase 10's one-rank
+    rates and operations. Returns the brick path's launches by kernel."""
+    import contextlib
+    import io
+
+    from tpusph_torch import cli
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.core.init import init_state
+    from tpusph_torch.core.io import load_state
+    from tpusph_torch.dist import mesh3d
+    from tpusph_torch.dist.comm import BrickComm, spawn_ranks
+    from tpusph_torch.engine.step import fields_from_state
+
+    cfg = tuned_config(N_MAIN)
+    names = ("rank", "density", "force")
+
+    # a. one brick rank, the whole machinery, every exchange returning zeros
+    comm = BrickComm(dev)
+    # a face with no rank behind it still counts its 2h band (tpusph's
+    # rule): at grid init the x band holds two lattice planes (23,762 rows)
+    # and the floor band fills as the column falls, so every halo buffer
+    # holds a whole block
+    halo = (cfg.padded_num_particles,) * 3
+    mcfg = mesh3d.Mesh3DConfig((1, 1, 1), cfg.padded_num_particles, halo, (DIST_MIGRATION,) * 3)
+    step = mesh3d.make_mesh3d_step(cfg, mcfg, comm)
+    run = mesh3d.make_mesh3d_run(cfg, mcfg, comm, CHAIN_STEPS)
+    start = mesh3d.distribute_state_3d(init_state(cfg, device="cpu"), cfg, mcfg, comm)
+    state = start
+    for fn in kernels:
+        fn.launches = 0
+    for k in range(DIST_STEPS):
+        state, aux = step(state)
+        hold_clean(aux, N_MAIN, f"one brick, step {k}")
+    per_step = {n: fn.launches / DIST_STEPS for n, fn in zip(names, kernels)}
+    for name, count in per_step.items():
+        require(count == 1, f"one brick: {name} launched {count} times a step")
+    pa, pb = hold_multisets(cfg, fields_of_block(state), fields_from_state(reference))
+    run(start)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, aux = run(start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hold_clean(aux, N_MAIN, f"one brick, {CHAIN_STEPS}-step run")
+    require(torch.isfinite(out.position).all(), "non-finite positions")
+    rate = CHAIN_STEPS / wall
+    ops = device_ops_per_step(mesh3d.make_mesh3d_run(cfg, mcfg, comm, PROFILED_STEPS), start,
+                              PROFILED_STEPS)
+    rows = cfg.padded_num_particles + 2 * sum(halo)
+    print(f"brick one rank (1, 1, 1): {DIST_STEPS} steps match {DIST_STEPS} step_kernels steps "
+          f"(density rtol 1e-4, positions atol 1e-4, multisets; max|dpos| "
+          f"{np.abs(pa - pb).max():.3e}), counters clean, {rows} rows (halo a direction "
+          f"{halo} by axis), launches a step {per_step}, {ops:.1f} operations a "
+          f"step on the card (profiler); {rate:.3f} timesteps/s ({CHAIN_STEPS} eager steps, "
+          f"{wall * 1e3:.3f} ms) beside the z-slab one rank elided {slab['rates']['elided']:.3f} "
+          f"({slab['ops']['elided']:.1f} operations a step) and through the whole machinery "
+          f"{slab['rates']['full machinery']:.3f} ({slab['ops']['full machinery']:.1f}); {card}")
+
+    # b. four ranks as a (1, 2, 2) grid on the one card
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host, no network
+    size = math.prod(BRICK_GRID)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "reference.npy")
+        np.save(ref_path, reference.position[:N_MAIN].cpu().numpy())
+        payload = {"n": N_MAIN, "reference": ref_path, "out": tmp}
+        t0 = time.perf_counter()
+        spawn_ranks(brick_rank, size, f"file://{tmp}/store", dev, (payload,),
+                    deadline_s=DIST_DEADLINE_S, shape=BRICK_GRID)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(size):
+            with open(os.path.join(tmp, f"brick{r}.json")) as f:
+                ranks.append(json.load(f))
+    require([r["rank"] for r in ranks] == list(range(size)), "a brick rank did not report")
+    first = ranks[0]
+    print(f"brick {BRICK_GRID} on one card over gloo: planes {first['planes']}, capacities "
+          f"(dev, halo, migration) {first['setup_caps']} from DistSimulator.setup, "
+          f"{first['caps']} after the warm-up run; {DIST_STEPS} simulate() steps, positions "
+          f"within 1e-4 of {DIST_STEPS} step_kernels steps, counters clean; spawn to join "
+          f"{spawn_s:.1f} s")
+    for r in ranks:
+        print(f"  rank {r['rank']} {tuple(r['coords'])}: {r['occupancy']} particles, {r['rows']} "
+              f"combined rows, {r['ghosts']} ghost rows, halo rows sent along y {r['halo_rows_y']} "
+              f"and x {r['halo_rows_x']} over {DIST_STEPS} steps, launches (rank, density, force) "
+              f"{r['launches']}, rank exact, density max err {r['density_max_abs_err']:.3e} "
+              f"(rtol 1e-5), force {r['force_max_abs_err']:.3e} (rtol 1e-4 atol 1e-4), "
+              f"{r['ms_per_step']:.3f} ms a step of which {r['exchange_ms_per_step']:.3f} ms "
+              f"inside the exchanges ({r['exchange_ms_per_step'] / r['ms_per_step']:.3f})")
+    slowest = max(r["ms_per_step"] for r in ranks)
+    print(f"brick {BRICK_GRID}: {slowest:.3f} ms a step ({1e3 / slowest:.3f} timesteps/s) on the "
+          f"slowest rank. Four ranks time-share one card and exchange through host memory "
+          f"(gloo): a check of correctness, not a scaling figure; {card}")
+
+    # c. the command line: --mesh in this process, and under torchrun
+    lo, hi = cfg.h, cfg.box_dim - cfg.h
+    for mesh in ("z", "1x1x1"):
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "mesh.npz")
+            argv = ["-n", str(N_MAIN), "-m", "time", "--mesh", mesh, "--save", ckpt]
+            for fn in kernels:
+                fn.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            out = buf.getvalue()
+            print(out, end="")
+            require(rc == 0, f"--mesh {mesh} exited {rc}")
+            require(out.count("Grid construction") == 1, f"--mesh {mesh}: no Times table")
+            for name, fn in zip(names, kernels):
+                require(fn.launches > 0, f"--mesh {mesh}: the {name} kernel was not launched")
+            state, _ = load_state(ckpt, "cpu")
+        v = state.valid.numpy()
+        pos = state.position.numpy()[v]
+        require(v.sum() == N_MAIN, f"--mesh {mesh}: the saved state holds {v.sum()} particles")
+        require(np.isfinite(pos).all() and np.isfinite(state.velocity.numpy()[v]).all(),
+                f"--mesh {mesh}: non-finite saved state")
+        require(pos.min() >= lo - 1e-6 and pos.max() <= hi + 1e-6,
+                f"--mesh {mesh}: a saved particle outside the box")
+        print(f"python -m tpusph_torch {' '.join(argv[:6])}: "
+              f"{times_rate(out, TIMED_STEPS):.3f} timesteps/s (100 / the Times phases) "
+              f"beside simulate_and_time {timed_rate:.3f} (phase 5); "
+              f"{N_MAIN} valid, finite rows inside the box saved; command {wall:.1f} s; {card}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(TORCHRUN_RANKS), "-m", "tpusph_torch", "-n", str(N_MAIN), "-m", "time",
+           "--steps", str(DIST_STEPS), "--mesh", TORCHRUN_MESH]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(r.stdout, end="")
+    require(r.returncode == 0, f"torchrun exited {r.returncode}: {r.stderr[-3000:]}")
+    require(r.stdout.count("Grid construction") == 1,
+            f"torchrun printed {r.stdout.count('Grid construction')} Times tables")
+    print(f"torchrun --standalone --nproc_per_node {TORCHRUN_RANKS} -m tpusph_torch -n {N_MAIN} "
+          f"-m time --steps {DIST_STEPS} --mesh {TORCHRUN_MESH}: exit 0, one Times table, "
+          f"{times_rate(r.stdout, DIST_STEPS):.3f} timesteps/s, command {wall:.1f} s (two "
+          f"processes on the one card over gloo); {card}")
+    return {n: {"brick_one_rank_per_step": per_step[n],
+                "brick_four_ranks": [r["launches"][i] for r in ranks]}
+            for i, n in enumerate(names)}
 
 
 def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> dict:
@@ -1496,7 +1806,9 @@ def main() -> int:
     replay_launches, reference, chain_rate = chained_loop(card, kernels, timed_rate, free_ms, dev)
 
     remainder_phase(card, main_state, gif_frames, dev)
-    dist_launches = dist_phase(card, kernels, reference, timed_rate, chain_rate, dev)
+    dist_launches, slab = dist_phase(card, kernels, reference, timed_rate, chain_rate, dev)
+    for name, brick in brick_phase(card, kernels, reference, timed_rate, slab, dev).items():
+        dist_launches[name].update(brick)
 
     for name, r in results.items():
         r["launches_per_replay"] = replay_launches.get(name, 0)

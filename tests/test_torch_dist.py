@@ -20,6 +20,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_dist_ranks as ranks  # noqa: E402
+from torch_dist_ranks import one_thread  # noqa: E402,F401  (autouse)
 
 from tpusph_torch.core.state import dist_state_from_numpy  # noqa: E402
 from tpusph_torch.dist import sharded  # noqa: E402

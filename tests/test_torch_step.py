@@ -187,10 +187,13 @@ def test_cli_time_mode_prints_times(capsys):
         assert row in out
 
 
-@pytest.mark.parametrize("args", [["--mesh", "z"]], ids=["mesh"])
+@pytest.mark.parametrize("args", [["--mesh", "z", "--backend", "allpairs"]], ids=["mesh"])
 def test_cli_refuses_unported_modes(args, capsys):
+    """The sharded engines run the kernels or the tile passes; the O(N^2)
+    oracle under --mesh is refused with the usage text."""
     assert cli.main(["-n", "256", "--device", "cpu", *args]) != 0
-    assert "not yet ported" in capsys.readouterr().err
+    captured = capsys.readouterr()
+    assert "not allpairs" in captured.err and "Program Options" in captured.out
 
 
 @pytest.mark.parametrize("args,rc", [
@@ -199,23 +202,21 @@ def test_cli_refuses_unported_modes(args, capsys):
     (["--pallas-sub-blocks", "80"], 1),
     (["--window-capacity", "256"], 1),
     (["--gif", "out.gif"], 0),
-    (["--mesh", "2x2x2"], 2),
+    (["--mesh", "2x2x2"], 1),
     (["-m", "free"], 0),
 ], ids=["stencil", "col_capacity", "sub_blocks", "window_capacity", "gif", "mesh", "window"])
 def test_cli_refuses_tpusph_flags_it_does_not_take(args, rc, capsys, monkeypatch):
     """The flags of tpusph/cli.py that the port's docstring lists as not
     taken: argparse rejects the Pallas sizing flags (usage text, exit code
-    1); --mesh is parsed and refused with exit code 2, nothing simulated
-    either way. The two that it has come to take return 0 as in tpusph:
-    --gif without --frames writes nothing, and the interactive window
-    without a display prints the hint."""
+    1), nothing simulated. --mesh is taken, and a grid of 8 bricks on a
+    group of one rank is refused the same way. The two that it has come to
+    take return 0 as in tpusph: --gif without --frames writes nothing, and
+    the interactive window without a display prints the hint."""
     monkeypatch.delenv("DISPLAY", raising=False)
     assert cli.main(["-n", "256", "--device", "cpu", "--steps", "1", *args]) == rc
     captured = capsys.readouterr()
     if rc == 1:
         assert "Program Options" in captured.out
-    elif rc == 2:
-        assert "not yet ported" in captured.err
     elif args == ["-m", "free"]:
         assert "No interactive display" in captured.out and "--frames" in captured.out
     else:
@@ -266,7 +267,8 @@ def test_port_never_imports_jax():
         "tpusph_torch.engine.simulator, tpusph_torch.neighbors.cell_list, "
         "tpusph_torch.utils.chunking, tpusph_torch.utils.native, "
         "tpusph_torch.bench.diagnostics, tpusph_torch.dist.comm, "
-        "tpusph_torch.dist.sharded, chip_smoke\n"
+        "tpusph_torch.dist.sharded, tpusph_torch.dist.mesh3d, tpusph_torch.dist.multislice, "
+        "tpusph_torch.dist.simulator, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpusph')]\n"
         "assert not bad, bad\n"
     )

@@ -13,6 +13,7 @@ from __future__ import annotations
 import types
 
 import numpy as np
+import pytest
 import torch
 
 from tpusph_torch.core.config import BOX_MAX_Y, BOX_MIN_X, default_config
@@ -40,6 +41,18 @@ OVERFLOWS = ("halo_overflow", "migration_overflow", "window_overflow", "misroute
 # state's particles (cells x = 1, y = 1 .. 9)
 CLICK = (BOX_MIN_X + 1, BOX_MAX_Y - 1)
 CLICK_STEP = 1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """A test module that imports this fixture runs one thread in its own
+    process too, as its ranks do: while ranks keep every core busy, a
+    multithreaded op waits at every barrier for threads the scheduler
+    cannot run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def sparse_cfg():
@@ -70,9 +83,9 @@ def drifting(arrays: dict) -> dict:
     return dict(arrays, velocity=vel)
 
 
-def single_process(cfg, arrays: dict, steps: int, click_at=None) -> dict:
+def single_process(cfg, arrays: dict, steps: int, click_at=None, click=CLICK) -> dict:
     """{position, velocity} of the live particles after `steps` steps of
-    the port's own `step_cell_list`, with CLICK after step `click_at`."""
+    the port's own `step_cell_list`, with `click` after step `click_at`."""
     n = cfg.padded_num_particles
     z3, z1 = torch.zeros((n, 3)), torch.zeros(n)
     state = FluidState(
@@ -84,7 +97,7 @@ def single_process(cfg, arrays: dict, steps: int, click_at=None) -> dict:
         pre = state.position
         state, _ = step(state)
         if k == click_at:
-            state = impulse(state, pre, CLICK)
+            state = impulse(state, pre, click)
     m = cfg.num_particles
     return {"position": state.position.numpy()[:m], "velocity": state.velocity.numpy()[:m]}
 

@@ -15,13 +15,26 @@ under tpusph's names auto and pallas; cell_list; allpairs), --viz-chunk
 (free mode: steps per dispatch) and --profile DIR (timed mode: a
 `torch.profiler` Chrome trace of the timed steps in DIR).
 
+`--mesh z|ZxYxX` shards the box over ranks through `DistSimulator`: `z`
+for z-slabs on a line of every rank, `ZxYxX` (e.g. 2x2x2) for a grid of
+bricks whose product is the number of ranks; a shape that is not three
+integers, or not the number of ranks, prints the usage text and exits 1.
+The ranks are processes: under `torchrun` (RANK, WORLD_SIZE and
+LOCAL_RANK set) each joins torchrun's group on `cuda:LOCAL_RANK` (or the
+CPU with `--device cpu`); started otherwise it is one rank with no group.
+Every rank steps and collects; rank 0 alone prints the Times table and
+writes the frames, the GIF and the checkpoint (`--save` goes through
+`DistSimulator.to_host_state`). Under `--mesh`, `--backend` auto, pallas
+and kernels run the kernels and cell_list the tile passes; allpairs exits
+1 (tpusph ignores `--backend` under `--mesh`). `-m free` without
+`--frames` (the interactive window) takes one rank; `--viz-chunk` does
+not apply (`DistSimulator` steps one frame at a time).
+
 Not every tpusph command line runs here. Flags of `tpusph/cli.py` that are
 not taken (argparse rejects them: the usage text, exit code 1):
 --stencil, --pallas-col-capacity, --pallas-sub-blocks and --window-capacity
 size the Pallas kernels' stencil decomposition, candidate buffers and window
 prep, which the CUDA kernels do without (they walk each window to its end).
---mesh is parsed and exits with code 2 until the sharded engine's
-simulator is ported.
 """
 
 from __future__ import annotations
@@ -30,9 +43,6 @@ import argparse
 import contextlib
 import os
 import sys
-
-NOT_PORTED = "not yet ported to tpusph_torch"
-
 
 def usage() -> str:
     return (
@@ -95,7 +105,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--gif", type=str, default=None,
         help="free mode with --frames: also assemble frames into this GIF",
     )
-    p.add_argument("--mesh", type=str, default=None, help=NOT_PORTED)
+    p.add_argument(
+        "--mesh", type=str, default=None, metavar="z|ZxYxX",
+        help="shard the box over the ranks: 'z' = 1-D z-slabs over every rank, "
+        "'ZxYxX' (e.g. 2x2x2) = a grid of bricks; ranks from torchrun",
+    )
     return p
 
 
@@ -130,6 +144,17 @@ def profile_to(trace_dir: str | None, device):
     print(f"wrote profiler trace: {path}", file=sys.stderr)
 
 
+def parse_mesh(spec: str):
+    """`--mesh`: 'z' → None (z-slabs), 'ZxYxX' → (Z, Y, X); anything else
+    raises ValueError."""
+    if spec == "z":
+        return None
+    shape = tuple(int(v) for v in spec.split("x"))
+    if len(shape) != 3:
+        raise ValueError(f"--mesh {spec}: three extents ZxYxX, or z")
+    return shape
+
+
 def main(argv: list[str] | None = None) -> int:
     args_in = sys.argv[1:] if argv is None else argv
     parser = build_parser()
@@ -141,24 +166,45 @@ def main(argv: list[str] | None = None) -> int:
     if args.show_help:
         print(usage(), end="")
         return 1
-    if args.mesh is not None:
-        print(f"sph: --mesh is {NOT_PORTED}", file=sys.stderr)
-        return 2
     try:
         clicks = parse_clicks(args.click)
+        mesh_shape = parse_mesh(args.mesh) if args.mesh is not None else None
     except ValueError:
         print(usage(), end="")
         return 1
+    if args.mesh is not None and args.backend == "allpairs":
+        print("sph: --mesh runs the kernels or cell_list backend, not allpairs", file=sys.stderr)
+        print(usage(), end="")
+        return 1
+    comm = None
+    if args.mesh is not None:
+        from tpusph_torch.dist.comm import join_torchrun
 
+        comm = join_torchrun(args.device)
+    try:
+        return _run(args, clicks, mesh_shape, comm)
+    finally:
+        if comm is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, clicks, mesh_shape, comm) -> int:
     from tpusph_torch.core.config import tuned_config
     from tpusph_torch.core.init import lattice_capacity
     from tpusph_torch.core.io import load_state, save_state
-    from tpusph_torch.engine.simulator import Simulator
 
+    meshed = args.mesh is not None
+    rank0 = comm is None or comm.rank == 0
+    if args.exec_mode == "free" and args.frames <= 0 and comm is not None and comm.size > 1:
+        print("sph: the interactive window runs on one rank; use --frames N with --mesh "
+              "under torchrun", file=sys.stderr)
+        return 1
     loaded_state = None
     if args.load is not None:
         # the checkpoint's config (N and the physics) is the one to resume
-        loaded_state, cfg = load_state(args.load, args.device)
+        loaded_state, cfg = load_state(args.load, "cpu" if meshed else args.device)
         if args.num_particles != 1000 and args.num_particles != cfg.num_particles:
             print(
                 f"sph: --load restores N={cfg.num_particles}; -n "
@@ -178,9 +224,25 @@ def main(argv: list[str] | None = None) -> int:
             )
             random_init = True
 
-    sim = Simulator(
-        cfg, backend=args.backend, random_init=random_init, seed=args.seed, device=args.device
-    )
+    if meshed:
+        from tpusph_torch.dist.simulator import DistSimulator
+
+        try:
+            sim = DistSimulator(
+                cfg, comm=comm, random_init=random_init, seed=args.seed, mesh_shape=mesh_shape,
+                backend=args.backend, device=args.device,
+            )
+        except ValueError as e:
+            print(f"sph: {e}", file=sys.stderr)
+            print(usage(), end="")
+            return 1
+    else:
+        from tpusph_torch.engine.simulator import Simulator
+
+        sim = Simulator(
+            cfg, backend=args.backend, random_init=random_init, seed=args.seed,
+            device=args.device,
+        )
     sim.setup(loaded_state)
 
     if args.exec_mode == "time":
@@ -190,10 +252,16 @@ def main(argv: list[str] | None = None) -> int:
         for _ in range(args.warmup):
             sim.simulate_and_time(warm)
         times = Times()
-        with profile_to(args.profile, sim.device):
+        with profile_to(args.profile if rank0 else None, sim.device):
             for _ in range(args.steps):
                 sim.simulate_and_time(times)
-        display_times(times)
+        if rank0:
+            display_times(times)
+    elif not rank0:
+        # the other ranks step and collect (a collective), and draw nothing
+        for k in range(args.frames):
+            sim.simulate(click=clicks.get(k))
+            sim.get_position()
     else:
         from tpusph_torch.viz.render import frames_to_gif, run_free_mode
 
@@ -205,6 +273,10 @@ def main(argv: list[str] | None = None) -> int:
             print(f"wrote {args.gif}")
 
     if args.save is not None:
-        save_state(args.save, sim.state, sim.cfg)
-        print(f"saved checkpoint: {args.save}", file=sys.stderr)
+        # one checkpoint format for both engines: the sharded one collects
+        # to a host FluidState first (a collective, so every rank takes part)
+        state = sim.to_host_state() if meshed else sim.state
+        if rank0:
+            save_state(args.save, state, sim.cfg)
+            print(f"saved checkpoint: {args.save}", file=sys.stderr)
     return 0

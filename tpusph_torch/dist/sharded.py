@@ -412,16 +412,32 @@ def _device_update(
         v = torch.stack([nvx, nvy, nvz], dim=1)
         return x, v, live, torch.where(live, tag_s, -1), (ovf_w, 0, 0, live.sum(), 0)
 
-    # ---- migration of slab-crossers (one hop) and kept-first repacking by
-    # one stable category sort: dn-migrants < kept < up-migrants < dead, so
-    # the sorted rows are both direction buffers (the prefix, the slice
-    # after the kept block) and the compacted state (the middle block). A
-    # particle cannot cross both faces.
+    # ---- migration of slab-crossers (one hop) and kept-first repacking
     mig_dn, mig_up, mis_mask = _migration_predicates(nz, live, cfg, dcfg, comm)
-    misrouted = mis_mask.sum()
+    nrows = torch.stack([nx, ny, nz, nvx, nvy, nvz])
+    x, v, valid_new, pid_new, ovf_mig, mig_send = _final_hop(
+        nrows, tag_s, live, mig_dn, mig_up, c_dev, m_cap, comm
+    )
+    return x, v, valid_new, pid_new, (ovf_w, ovf_mig, mis_mask.sum(), valid_new.sum(), mig_send)
+
+
+def _final_hop(nrows, tag, live, mig_dn, mig_up, c_dev: int, m_cap: int, line):
+    """The last migration hop and the kept-first repacking, by one stable
+    category sort: dn-migrants < kept < up-migrants < dead, so the sorted
+    rows are both direction buffers (the prefix, the slice after the kept
+    block) and the compacted state (the middle block). A particle cannot
+    cross both faces. `nrows` [6, n] and `tag` are the rows after
+    integration (a tag ≥ 0 is a live pid), `line` the line of ranks
+    across the faces. Arrivals scatter into the free tail of `c_dev`
+    slots. Returns (x, v, valid_new, pid_new, overflow, max_send): the
+    overflow of the two direction buffers, of the kept block beyond c_dev
+    (rows that arrived on earlier axes can exceed it; local rows alone
+    cannot) and of the free tail, not yet reduced."""
+    dev = nrows.device
     kept = live & ~mig_dn & ~mig_up
     n_dn, n_up, n_kept = mig_dn.sum(), mig_up.sum(), kept.sum()
     ovf_mig = (n_dn - m_cap).clamp(min=0) + (n_up - m_cap).clamp(min=0)
+    ovf_mig = ovf_mig + (n_kept - c_dev).clamp(min=0)
 
     cat = torch.where(mig_dn, 0, torch.where(mig_up, 2, torch.where(kept, 1, 3)))
     # m_cap dead rows behind the sort keep the kept and up slices below in
@@ -430,13 +446,12 @@ def _device_update(
     order = torch.sort(
         torch.cat([cat, cat.new_full((m_cap,), 3)]).to(torch.uint8), stable=True
     ).indices
-    nrows = torch.stack([nx, ny, nz, nvx, nvy, nvz])
     mrows = torch.cat([nrows, nrows.new_zeros((6, m_cap))], dim=1).index_select(1, order)
-    mtag = torch.cat([tag_s, tag_s.new_full((m_cap,), -2)]).index_select(0, order)
+    mtag = torch.cat([tag, tag.new_full((m_cap,), -2)]).index_select(0, order)
 
     lane = _lane(m_cap, dev)
     up0 = n_dn + n_kept
-    (in_lo, in_lo_tag, in_lo_valid), (in_hi, in_hi_tag, in_hi_valid) = comm.exchange(
+    (in_lo, in_lo_tag, in_lo_valid), (in_hi, in_hi_tag, in_hi_valid) = line.exchange(
         [_take(mrows, up0, m_cap), _take(mtag, up0, m_cap), lane < n_up],
         [mrows[:, :m_cap], mtag[:m_cap], lane < n_dn],
     )
@@ -465,10 +480,7 @@ def _device_update(
     x = orows[:3].T.contiguous()
     v = orows[3:].T.contiguous()
     pid_new = torch.where(valid_new, otag, -1)
-    scalars = (
-        ovf_w, ovf_mig + dev_overflow, misrouted, valid_new.sum(), torch.maximum(n_dn, n_up)
-    )
-    return x, v, valid_new, pid_new, scalars
+    return x, v, valid_new, pid_new, ovf_mig + dev_overflow, torch.maximum(n_dn, n_up)
 
 
 def _device_step(
@@ -489,14 +501,21 @@ def _device_step(
 
 
 def _prepare(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm, backend: str) -> str:
-    """The checks every `make_sharded_*` starts with; on a card the
-    kernels are built here, so the first step does not pay for the build.
+    """The checks every `make_sharded_*` starts with, then `_kernels_for`.
     Returns the resolved backend."""
-    cfg.validate()
     dcfg.validate()
     _check_slab_width(cfg, dcfg)
     if comm.size != dcfg.n_devices:
         raise ValueError(f"{comm.size} ranks for a DistConfig of {dcfg.n_devices} slabs")
+    return _kernels_for(cfg, comm, backend)
+
+
+def _kernels_for(cfg: SimConfig, comm, backend: str) -> str:
+    """The config and backend checks of the sharded engines; on a card the
+    kernels are built here (and a card without nvcc refuses the step), so
+    the first step does not pay for the build. Returns the resolved
+    backend."""
+    cfg.validate()
     backend = resolve_backend(backend)
     if backend not in ("kernels", "cell_list"):
         raise ValueError("the sharded engine needs the 'kernels' or 'cell_list' backend")

@@ -182,7 +182,10 @@ def run_free_mode(
     positions in `out_dir`, with scripted clicks {frame: (px, py)} applied
     to that frame's step; chunk=S (default TPUSPH_VIZ_CHUNK, else
     unchunked) runs S steps per dispatch, see `_run_chunked`. frames == 0:
-    the interactive window with live left-click ripple impulses."""
+    the interactive window with live left-click ripple impulses. A
+    simulator without `dispatch_chunk` (`DistSimulator`) runs unchunked,
+    and one without `get_position_async` collects each frame's positions
+    synchronously, as tpusph does."""
     if frames <= 0:
         _run_interactive(sim)
         return
@@ -190,7 +193,7 @@ def run_free_mode(
     os.makedirs(out_dir, exist_ok=True)
     if chunk is None:
         chunk = int(os.environ.get("TPUSPH_VIZ_CHUNK", "0"))
-    if chunk > 1:
+    if chunk > 1 and hasattr(sim, "dispatch_chunk"):
         _run_chunked(sim, frames, chunk, clicks, out_dir)
         return
     # Frame k always renders the post-step-k positions; only the wait moves
@@ -198,9 +201,13 @@ def run_free_mode(
     # the overlap away: each frame is fetched and drawn before the next step
     # is dispatched.
     sync = bool(os.environ.get("TPUSPH_VIZ_SYNC"))
+    overlap = hasattr(sim, "get_position_async")
     pending = None  # (frame index, fetch in flight)
     for k in range(frames):
         sim.simulate(click=clicks.get(k))
+        if not overlap:  # DistSimulator: a synchronous collect
+            _render_to(sim.get_position(), k, out_dir)
+            continue
         fetch = sim.get_position_async()
         if pending is not None:
             _render_to(pending[1].wait(), pending[0], out_dir)
@@ -279,7 +286,8 @@ def _build_interactive(sim):
     frames behind the physics. A step that overflowed rewinds to its
     pre-state, replays through `simulate`'s grow-and-retry, and the younger
     ticks are dispatched again in order. TPUSPH_VIZ_SYNC=1 is the
-    sequential simulate, fetch, render tick."""
+    sequential simulate, fetch, render tick, and so is a simulator without
+    `dispatch_chunk` (`DistSimulator`)."""
     import matplotlib.pyplot as plt
 
     fig, ax = plt.subplots(figsize=(8, 6))
@@ -295,7 +303,9 @@ def _build_interactive(sim):
 
     fig.canvas.mpl_connect("button_press_event", on_click)
 
-    sync = os.environ.get("TPUSPH_VIZ_SYNC") == "1"
+    sync = os.environ.get("TPUSPH_VIZ_SYNC") == "1" or not hasattr(
+        sim, "dispatch_chunk"  # DistSimulator: the sequential tick only
+    )
     pack = frame_pack(sim.cfg.num_particles)
     draw = {"bitmap": render_frame_bitmap, True: render_frame_packed, False: render_frame}[pack]
     depth = max(1, int(os.environ.get("TPUSPH_VIZ_DEPTH", "2")))
