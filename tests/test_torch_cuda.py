@@ -31,7 +31,10 @@ inside a replayed CUDA graph. The copy of the
 positions to the host equals a synchronous copy exactly. One rank of the
 sharded engine on the card, elided and with the whole multi-rank machinery,
 and `DistSimulator` on one rank as z-slabs and as a (1, 1, 1) brick grid,
-against the same steps on the CPU."""
+against the same steps on the CPU. `bench_torch`'s gates pass on the card
+and its timed run launches each kernel; `fields_profile`'s stages compose
+to the fields step bit for bit; `build_bench`'s three starts tables agree;
+`graft_entry.entry()`'s step on the card matches the CPU's at 1e-4."""
 
 import numpy as np
 import pytest
@@ -750,3 +753,92 @@ def test_dist_simulator_on_the_card_matches_the_cpu(dev, mesh):
         assert list(sim.last_aux[:6]) == [0, 0, 0, 0, 0, n]
         got[device.type] = sim.get_position()
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=0, atol=1e-4)
+
+
+def _bench_torch():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import bench_torch
+
+    return bench_torch
+
+
+def test_bench_gates_pass_on_the_card(dev):
+    """`bench_torch`'s gates on the card: verify_parity at 4,096 (the
+    fields chain, a CUDA graph, against the cell_list tile passes; the
+    oracle) and verify_headline at 32,768 over 3 steps; the kernels run."""
+    bench_torch = _bench_torch()
+    kernels = (qrank.rank_queries, fused.density, fused.force)
+    for fn in kernels:
+        fn.launches = 0
+    assert bench_torch.verify_parity("kernels", 10, 4096, dev) == "pass"
+    assert all(fn.launches > 0 for fn in kernels)
+    cfg = default_config(32768)
+    assert bench_torch.verify_headline(cfg, init_state(cfg, device=dev), "kernels", dev, 3) == "pass"
+
+
+def test_bench_main_launches_the_kernels(dev, monkeypatch, capsys):
+    import json
+
+    bench_torch = _bench_torch()
+    for k, v in (("TPUSPH_BENCH_N", "16384"), ("TPUSPH_BENCH_STEPS", "5"),
+                 ("TPUSPH_BENCH_VERIFY", "0")):
+        monkeypatch.setenv(k, v)
+    for k in ("TPUSPH_BENCH_DIST", "TPUSPH_BENCH_DEVICE", "TPUSPH_BENCH_BACKEND"):
+        monkeypatch.delenv(k, raising=False)
+    kernels = (qrank.rank_queries, fused.density, fused.force)
+    for fn in kernels:
+        fn.launches = 0
+    bench_torch.main()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "torch_sph_timesteps_per_sec_n16384" and line["value"] > 0
+    assert line["device"] == torch.cuda.get_device_name(dev)
+    # the capture's warm-up run, its first replay, the warm and the timed replay
+    assert [fn.launches for fn in kernels] == [4 * 5] * 3
+
+
+def test_fields_profile_stages_compose_on_the_card(dev):
+    """The profile's stages in order are the fields step bit for bit."""
+    from tpusph_torch.engine.step import fields_from_state, step_kernels_fields
+    from tpusph_torch.scripts import fields_profile
+
+    cfg = default_config(32768)
+    fs = fields_from_state(init_state(cfg, random_init=True, seed=3, device=dev))
+    fns = fields_profile.stages(cfg)
+    sf = fns["build"](fs)
+    rho, p = fns["press"](fns["density"](sf), sf.valid_sorted)
+    fxyz = fns["force"](sf, rho, p)
+    out = fns["integ"](sf, fxyz, rho)
+    (want, w_rho, w_p, w_f), _ = step_kernels_fields(fs, cfg)
+    for a, b in zip((*out, rho, p, *fxyz), (*want, w_rho, w_p, *w_f)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("random_init", [False, True], ids=["grid", "random"])
+def test_build_bench_starts_tables_on_the_card(dev, random_init):
+    from tpusph_torch.scripts import build_bench
+
+    cfg = default_config(65536)
+    st = init_state(cfg, random_init=random_init, seed=4, device=dev)
+    from tpusph_torch.engine.step import fields_from_state
+
+    fs = fields_from_state(st)
+    key, _ = build_bench.compute_keys_fields(fs.x, fs.y, fs.z, fs.valid, cfg)
+    tables = build_bench.starts_tables(cfg, key, torch.sort(key, stable=True).values)
+    ref = tables["hist+cumsum"]
+    assert all(torch.equal(t, ref) for t in tables.values())
+
+
+def test_graft_entry_step_on_the_card_matches_the_cpu(dev):
+    from tpusph_torch import graft_entry
+
+    fn, (state,) = graft_entry.entry()
+    assert state.position.is_cuda
+    got = fn(state)
+    fn_cpu, (state_cpu,) = graft_entry.entry(device="cpu")
+    want = fn_cpu(state_cpu)
+    for f in ("position", "velocity", "density"):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(), getattr(want, f).numpy(),
+                                   rtol=1e-4, atol=1e-4)

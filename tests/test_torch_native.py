@@ -3,6 +3,7 @@ native.py`) against the JAX package's and against the numpy rasters: the
 library is host code, every caller's numpy path must give the same bytes."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -10,12 +11,14 @@ import torch
 
 from tpusph.core.config import default_config as jdefault
 from tpusph.core.init import random_positions as jrandom_positions
-from tpusph.utils import native as jnative
 from tpusph_torch.core.config import default_config as tdefault
 from tpusph_torch.core.init import random_positions
 from tpusph_torch.utils import cuda_build, native
 from tpusph_torch.viz import render
 from tpusph_torch.viz.project import project_pixels_packed
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import LIBRARY, jax_native  # noqa: E402,F401
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None, reason="no g++: native library unavailable")
 
@@ -69,18 +72,20 @@ def test_rasters_without_the_library(monkeypatch):
 
 
 @pytest.mark.parametrize("seed", [1, 7])
-def test_reference_random_positions_match_tpusph(seed):
+def test_reference_random_positions_match_tpusph(seed, jax_native):
     got = native.reference_random_positions(1000, 10.0, seed)
-    want = jnative.reference_random_positions(1000, 10.0, seed)
+    want = jax_native.reference_random_positions(1000, 10.0, seed)
+    assert want is not None, f"tpusph could not build or load {LIBRARY}"
     assert got.dtype == np.float32 and got.shape == (1000, 3)
     np.testing.assert_array_equal(got, want)
     assert got.min() >= 1.0 and got.max() <= 9.0
 
 
 @pytest.mark.parametrize("seed", [0, 1, 5])
-def test_reference_rng_init_matches_tpusph(seed):
+def test_reference_rng_init_matches_tpusph(seed, jax_native):
     """`random_positions(..., reference_rng=True)` bit for bit; seed 0 is
     raised to 1, glibc's default, in both packages."""
+    assert jax_native.get_lib() is not None, f"tpusph could not build or load {LIBRARY}"
     got = random_positions(tdefault(777), seed, reference_rng=True)
     want = jrandom_positions(jdefault(777), seed, reference_rng=True)
     assert got.dtype == torch.float32

@@ -286,3 +286,16 @@ def jax_checks(comm, payload: dict) -> None:
         for got, exp in zip(live_rows(state), live_rows(ref)):
             np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-6)
     assert halo > 0 and migrated > 0
+
+
+def dryrun_tight_halo(comm) -> None:
+    """The dry run's z-slab leg (`graft_entry.slab_leg`) on its own state
+    with halo buffers of 8 rows: the halo overflow counter goes non-zero
+    on the first step, and the leg's check must raise."""
+    from tpusph_torch import graft_entry
+
+    cfg = graft_entry.dryrun_config()
+    dcfg = DistConfig(n_devices=comm.size, dev_capacity=8192, halo_capacity=8,
+                      migration_capacity=256)
+    graft_entry.slab_leg(comm, cfg, dcfg, graft_entry.dryrun_state(cfg), "kernels", 1, 0,
+                         "tight")

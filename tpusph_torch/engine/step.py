@@ -35,6 +35,7 @@ from tpusph_torch.kernels.fused import column_offsets, density, force
 from tpusph_torch.neighbors.allpairs import density_allpairs, forces_allpairs
 from tpusph_torch.neighbors.cell_list import (
     CellList,
+    SortedFields,
     build_cell_list,
     build_sorted_fields_1d,
 )
@@ -79,6 +80,13 @@ def build_phase(state: FluidState, cfg: SimConfig, histogram: bool = False) -> C
     (kernelBuildGrid, simulator.cu:505-513). `histogram` as in
     `build_cell_list`."""
     return build_cell_list(state.position, state.valid, cfg, histogram)
+
+
+def masked_pressure(raw, valid_s, cfg: SimConfig):
+    """(density, pressure) of sorted rows from the raw density sums; the
+    invalid rows get density 1 and pressure 0."""
+    rho_s, p_s = pressure_from_density(raw, cfg)
+    return torch.where(valid_s, rho_s, 1.0), torch.where(valid_s, p_s, 0.0)
 
 
 # ------------------------------------------------------------ tile passes
@@ -149,8 +157,7 @@ def _density_pass_sorted(sp, key_s, valid_s, starts, cfg: SimConfig):
             acc += torch.where(hit, pair_density(disp, cfg), 0.0).sum(dim=2)
             ovf += excess.sum()
         rho[b] = acc.reshape(-1)
-    rho, p = pressure_from_density(rho, cfg)
-    return torch.where(valid_s, rho, 1.0), torch.where(valid_s, p, 0.0), ovf
+    return (*masked_pressure(rho, valid_s, cfg), ovf)
 
 
 def _force_pass_sorted(sp, sv, rho_s, p_s, key_s, valid_s, starts, cfg: SimConfig):
@@ -220,9 +227,7 @@ def update_phase_kernels(state: FluidState, cl: CellList, cfg: SimConfig):
     vxyz = state.velocity[cl.perm].T.contiguous()
     valid_s = cl.valid_sorted
     raw = density(*xyz, cl.key_sorted, cl.starts, cfg)
-    rho_s, p_s = pressure_from_density(raw, cfg)
-    rho_s = torch.where(valid_s, rho_s, 1.0)
-    p_s = torch.where(valid_s, p_s, 0.0)
+    rho_s, p_s = masked_pressure(raw, valid_s, cfg)
     f_s = force(*xyz, *vxyz, rho_s, p_s, cl.key_sorted, cl.starts, cfg)
     f_s = torch.where(valid_s, f_s, 0.0).T
     new_state = _finish(state, *_scatter_back(state, cl, f_s, rho_s, p_s), cfg)
@@ -258,26 +263,51 @@ def fields_from_state(state: FluidState) -> FieldsState:
     )
 
 
+def state_from_fields(fs: FieldsState, density=None, pressure=None) -> FluidState:
+    """The FluidState of a fields state at the loop's end: zero force,
+    density 1 and pressure 0 unless given."""
+    n = fs.x.shape[0]
+    return FluidState(
+        position=torch.stack([fs.x, fs.y, fs.z], dim=1),
+        velocity=torch.stack([fs.vx, fs.vy, fs.vz], dim=1),
+        force=fs.x.new_zeros((n, 3)),
+        density=density if density is not None else fs.x.new_ones(n),
+        pressure=pressure if pressure is not None else fs.x.new_zeros(n),
+        valid=fs.valid,
+    )
+
+
+def masked_force(sf: SortedFields, rho_s, p_s, cfg: SimConfig):
+    """(fx, fy, fz) of the sorted rows from the force kernel; 0 on the
+    invalid rows."""
+    f_rows = force(sf.x, sf.y, sf.z, sf.vx, sf.vy, sf.vz, rho_s, p_s, sf.key_sorted, sf.starts,
+                   cfg)
+    return tuple(torch.where(sf.valid_sorted, f_rows[a], 0.0) for a in range(3))
+
+
+def masked_integrate(sf: SortedFields, fxyz, rho_s, cfg: SimConfig) -> FieldsState:
+    """The sorted rows moved by one integration step; the invalid rows
+    stay where they are."""
+    xyz, vxyz = (sf.x, sf.y, sf.z), (sf.vx, sf.vy, sf.vz)
+    moved = integrate_fields(*xyz, *vxyz, *fxyz, rho_s, cfg)
+    return FieldsState(
+        *(torch.where(sf.valid_sorted, a, b) for a, b in zip(moved, (*xyz, *vxyz))),
+        sf.valid_sorted,
+    )
+
+
 def step_kernels_fields(fs: FieldsState, cfg: SimConfig):
     """Fields-native timestep on the rank, density and force kernels,
     returning the state in SORTED order (the physics is permutation-
     invariant; `valid` travels with the particles). Returns
     ((FieldsState, rho_s, p_s, (fx, fy, fz)), aux)."""
-    sf = build_sorted_fields_1d(fs.x, fs.y, fs.z, fs.vx, fs.vy, fs.vz, fs.valid, cfg)
-    valid_s = sf.valid_sorted
-    xyz, vxyz = (sf.x, sf.y, sf.z), (sf.vx, sf.vy, sf.vz)
-    raw = density(*xyz, sf.key_sorted, sf.starts, cfg)
-    rho_s, p_s = pressure_from_density(raw, cfg)
-    rho_s = torch.where(valid_s, rho_s, 1.0)
-    p_s = torch.where(valid_s, p_s, 0.0)
-    f_rows = force(*xyz, *vxyz, rho_s, p_s, sf.key_sorted, sf.starts, cfg)
-    fx, fy, fz = (torch.where(valid_s, f_rows[a], 0.0) for a in range(3))
-    moved = integrate_fields(*xyz, *vxyz, fx, fy, fz, rho_s, cfg)
-    out = FieldsState(
-        *(torch.where(valid_s, a, b) for a, b in zip(moved, (*xyz, *vxyz))), valid_s
-    )
+    sf = build_sorted_fields_1d(*fs, cfg)
+    raw = density(sf.x, sf.y, sf.z, sf.key_sorted, sf.starts, cfg)
+    rho_s, p_s = masked_pressure(raw, sf.valid_sorted, cfg)
+    fxyz = masked_force(sf, rho_s, p_s, cfg)
+    out = masked_integrate(sf, fxyz, rho_s, cfg)
     aux = StepAux(oob_count=sf.oob_count, window_overflow=sf.starts_overflow)
-    return (out, rho_s, p_s, (fx, fy, fz)), aux
+    return (out, rho_s, p_s, fxyz), aux
 
 
 def make_fields_chain(cfg: SimConfig, steps: int, device):
