@@ -47,6 +47,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # bench.py's name for the backend it times
 BACKEND_NAMES = {"pallas_sorted": "kernels"}
 GROWTH_TRIES = 4  # bench.py's tile-capacity doublings before a gate gives up
+PROFILED_DIST_STEPS = 10  # the sharded mode's profiled run, for the busy share
 
 
 def bench_device() -> torch.device:
@@ -294,6 +295,25 @@ def _size_and_init(n: int):
     return cfg, random_init
 
 
+def _busy_share(run, device):
+    """Device time over wall time of one `run()` up to a synchronize, from
+    torch.profiler's device events; None on the CPU or where the profiler
+    shows no device time."""
+    if device.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    return round(device_us / 1e6 / wall, 4) if device_us > 0 else None
+
+
 def main_dist() -> None:
     """The sharded mode (TPUSPH_BENCH_DIST=<ranks>): `DistSimulator`'s
     production loop, held to the single-card bench's rigor by
@@ -306,15 +326,21 @@ def main_dist() -> None:
     Capacities are measured: `right_size(warmup_steps=10)` unless
     TPUSPH_BENCH_DIST_SLACK pins a slack. One warm `run(steps)`, the state
     set up again, one timed `run(steps)` up to a synchronize. The run is
-    eager (a Python loop of steps), so the number is host-bound. Rank 0
-    prints the line and writes it with its capacities to
-    TORCH_DIST_BENCH[_FULL][_n{N}].json in TPUSPH_BENCH_ARTIFACT_DIR (the
-    repo root by default)."""
+    eager (a Python loop of steps), so the number is host-bound; on a card
+    a profiled run of PROFILED_DIST_STEPS more gives the device's busy
+    share. Rank 0 prints the line and writes it with its capacities to
+    TORCH_DIST_BENCH[_FULL[_MIGSORT]][_n{N}].json in
+    TPUSPH_BENCH_ARTIFACT_DIR (the repo root by default): `_FULL` with
+    TPUSPH_DIST_FULL_MACHINERY=1, the engine as it runs by default (the
+    migration-free sort skip live), `_MIGSORT` added where
+    TPUSPH_DIST_FORCE_MIGSORT=1 turns the skip off (the whole machinery or
+    more than one rank)."""
     import torch.distributed as dist
 
     from tpusph_torch.core.init import init_state
     from tpusph_torch.dist.comm import join_torchrun
     from tpusph_torch.dist.simulator import DistSimulator, default_dist_config
+    from tpusph_torch.scripts import device_card
 
     ranks = int(os.environ["TPUSPH_BENCH_DIST"])
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -351,6 +377,7 @@ def main_dist() -> None:
         sim.run(steps)
         _sync(device)
         dt = time.perf_counter() - t0
+        busy = _busy_share(lambda: sim.run(PROFILED_DIST_STEPS), device)
         if not _is_rank0(sim.comm):
             return
         line = {
@@ -361,13 +388,17 @@ def main_dist() -> None:
             "device": device_name(device),
         }
         full = os.environ.get("TPUSPH_DIST_FULL_MACHINERY") == "1"
+        migsort = os.environ.get("TPUSPH_DIST_FORCE_MIGSORT") == "1"
         artifact = dict(
             line, steps=steps, backend=sim.backend, ranks=ranks,
             dev_capacity=sim.dcfg.dev_capacity, halo_capacity=sim.dcfg.halo_capacity,
             migration_capacity=sim.dcfg.migration_capacity, right_sized=right_sized,
             slack=float(slack_env) if slack_env else None, full_machinery=full,
+            force_migsort=migsort, device_busy=busy, card=device_card(device),
         )
         name = "TORCH_DIST_BENCH" + ("_FULL" if full else "")
+        if migsort and (full or ranks > 1):  # the skip is there to turn off
+            name += "_MIGSORT"
         if n != 262_144:  # other tiers get their own artifact
             name += f"_n{n}"
         art_dir = os.environ.get("TPUSPH_BENCH_ARTIFACT_DIR") or REPO

@@ -167,7 +167,29 @@ Phases, each of which raises on failure (exit code 1):
      `TPUSPH_BENCH_DIST=1 python3 bench_torch.py` (one rank, its gate on)
      with its artifact in a temporary directory; `graft_entry.entry()`'s
      step once on the card; `scripts.fields_profile` at steps 0 and 60 and
-     `scripts.build_bench` once, every time positive.
+     `scripts.build_bench` once, every time positive;
+ 13. the last modules: the migration-free sort skip of the z-slab engine,
+     sharded checkpoints, the slab census and the scaling model:
+     a. one slab rank through the whole machinery at 262,144 grid init: 20
+        steps with TPUSPH_DIST_FORCE_MIGSORT=1 and 20 with the skip, every
+        row of positions, velocities, valid and pids and the nine counters
+        bit for bit after every step, (sorts, skips) (20, 0) and (0, 20),
+        20 launches of each kernel a run; `_device_update`'s device ms
+        (profiler) and wall ms in each mode;
+     b. four slab ranks on the card over gloo, 262,144 random init with the
+        rows within 0.05 below each interior face given vz = 2, so that
+        they cross: 20 steps in each mode bit for bit on every rank, both
+        branches taken over the ranks, 20 launches of each kernel a rank;
+     c. `DistSimulator` on one rank, 10 steps, `save_dist_state`,
+        `load_dist_state`, 10 more steps: within 1e-5 of 20 uninterrupted
+        steps;
+     d. `scripts.slab_census` at 262,144 grid init, 100 steps in chunks of
+        10 on the card (the fields chain), written to a temporary
+        directory: within `slab_census.compare`'s bars of
+        scaling/census_n262144.json at every checkpoint, the counts that
+        differ at all listed;
+     e. `scripts.scaling_model` on the repo's artifacts (TORCH_DIST_BENCH*.json,
+        scaling_torch/), its tables printed.
 The probes' bounds are their FMA (2 flops) or operation counts at 67
 TFLOP/s. Each path's kernel launch counts are set to 0 just before it and
 read just after. A wrapper counts where it launches its kernel; inside a CUDA graph
@@ -176,7 +198,7 @@ read just after. A wrapper counts where it launches its kernel; inside a CUDA gr
 per-kernel results (the main path's launches, the launches in one replay
 of the 100-step chain, and for rank, density and force the numbers at step
 20 with each state's under "by_step", the sharded and brick paths'
-launches under "dist_launches", bench_torch's timed run's under
+launches and phase 13's under "dist_launches", bench_torch's timed run's under
 "bench_launches") and, last, one JSON line {"ok":
 true, "device": {...}}.
 """
@@ -193,6 +215,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -221,6 +244,10 @@ PROFILED_STEPS = 10  # steps of the profiled run that counts a step's operations
 BRICK_GRID = (1, 2, 2)  # phase 11b: four ranks, the y and x phases staged
 TORCHRUN_MESH, TORCHRUN_RANKS = "1x1x2", 2  # phase 11c
 BENCH_TIMEOUT_S = 600  # a bench_torch.py subprocess of phase 12
+SKIP_STEPS = 20  # phase 13a and 13b: steps with the skip and with the sort
+CHECKPOINT_STEPS = 10  # phase 13c: steps before and after the checkpoint
+CENSUS_STEPS, CENSUS_CHUNK = 100, 10  # phase 13d
+SKIP_KICK = (0.05, 2.0)  # phase 13b: rows this far below a slab face get this vz
 KERNEL_STATES = (0, 20, 100)  # steps of 262,144 grid init at which phase 3 checks and times
 TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
 # H100 SXM peaks (NVIDIA's data sheet) for the bounds
@@ -1394,6 +1421,270 @@ def bench_phase(card: str, kernels, chain_rate: float, dev) -> dict:
     return launches
 
 
+def _update_device_ms(cfg, dcfg, comm, inter, calls: int = 10) -> tuple[float, float]:
+    """(device ms, wall ms) of one `_device_update` call on `inter`, the
+    rows of one `_device_build`: device time from torch.profiler's device
+    events over `calls` calls, wall time up to a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusph_torch.dist import sharded
+
+    def calls_once():
+        for _ in range(calls):
+            sharded._device_update(*inter, None, False, cfg, dcfg, comm, "kernels",
+                                   with_click=False)
+
+    calls_once()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        calls_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    return device_us / 1e3 / calls, wall * 1e3 / calls
+
+
+def _skip_runs(step, start, kernels, steps: int) -> dict:
+    """The same `steps` steps from `start` with TPUSPH_DIST_FORCE_MIGSORT=1
+    ("sort") and with the skip, in turns: sort, skip, skip, sort. Per mode
+    the states and counters after every step of its first run, the branch
+    counters and the kernels' launches of that run, and the wall ms a step
+    of both runs; every run's rows are held bit for bit against the first
+    sort run's."""
+    from tpusph_torch.dist import sharded
+
+    runs = {}
+    sync = torch.cuda.synchronize if start.position.is_cuda else (lambda: None)
+    for mode in ("sort", "skip", "skip", "sort"):
+        os.environ["TPUSPH_DIST_FORCE_MIGSORT"] = "1" if mode == "sort" else "0"
+        try:
+            sharded.migration_sorts = sharded.migration_skips = 0
+            for fn in kernels:
+                fn.launches = 0
+            state, out = start, []
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, aux = step(state)
+                out.append((state, aux))
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("TPUSPH_DIST_FORCE_MIGSORT", None)
+        if "sort" in runs:
+            _hold_bit_equal(runs["sort"]["states"], out, f"{mode} run")
+        if mode in runs:
+            runs[mode]["ms_per_step"].append(wall / steps * 1e3)
+            continue
+        runs[mode] = {
+            "states": out, "sorts": sharded.migration_sorts, "skips": sharded.migration_skips,
+            "launches": [fn.launches for fn in kernels], "ms_per_step": [wall / steps * 1e3],
+        }
+    return runs
+
+
+def _hold_bit_equal(want: list, got: list, what: str) -> None:
+    for k, ((a, aux_a), (b, aux_b)) in enumerate(zip(want, got)):
+        require([int(x) for x in aux_a] == [int(x) for x in aux_b],
+                f"{what}, step {k}: the counters differ from the sort's")
+        for x, y, field in zip(a, b, a._fields):
+            require(torch.equal(x, y), f"{what}, step {k}: {field} differs from the sort's")
+
+
+def skip_rank(comm, payload: dict) -> None:
+    """One of phase 13b's ranks (a process of its own on the one card):
+    random init with the rows just below each interior slab face kicked
+    up across it, `SKIP_STEPS` steps with the sort and with the skip, the
+    checks of the module docstring; writes its numbers to
+    `payload["out"]/skip<r>.json`."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.dist import sharded
+    from tpusph_torch.kernels import fused, qrank
+
+    n = payload["n"]
+    cfg = tuned_config(n)
+    dcfg = sharded.DistConfig(**payload["dcfg"])
+    whole = np.load(payload["state"])
+    whole = {k: whole[k] for k in ("position", "velocity", "valid")}
+    start = sharded.distribute_state(types.SimpleNamespace(**whole), cfg, dcfg, comm)
+    step = sharded.make_sharded_step(cfg, dcfg, comm)
+    step(start)  # warm-up: loads the library, fills the caches
+    kernels = (qrank.rank_queries, fused.density, fused.force)
+    runs = _skip_runs(step, start, kernels, SKIP_STEPS)
+    for mode in ("sort", "skip"):
+        for k, (_, aux) in enumerate(runs[mode]["states"]):
+            hold_clean(aux, n, f"rank {comm.rank}, {mode}, step {k}")
+        require(runs[mode]["launches"] == [SKIP_STEPS] * 3,
+                f"rank {comm.rank}, {mode}: launches {runs[mode]['launches']}")
+    require((runs["sort"]["sorts"], runs["sort"]["skips"]) == (SKIP_STEPS, 0),
+            f"rank {comm.rank}: TPUSPH_DIST_FORCE_MIGSORT=1 skipped")
+    crossed = [int(aux.max_migration_send) for _, aux in runs["skip"]["states"]]
+    with open(os.path.join(payload["out"], f"skip{comm.rank}.json"), "w") as f:
+        json.dump({
+            "rank": comm.rank, "occupancy": int(start.valid.sum()),
+            "sorts": runs["skip"]["sorts"], "skips": runs["skip"]["skips"],
+            "launches": runs["skip"]["launches"], "max_migration_send": crossed,
+            "ms_per_step": {m: runs[m]["ms_per_step"] for m in runs},
+        }, f)
+
+
+def _turns(ms: dict) -> str:
+    """Four times taken in turns sort, skip, skip, sort ({mode: [first,
+    second]}), in that order."""
+    order = (ms["sort"][0], ms["skip"][0], ms["skip"][1], ms["sort"][1])
+    return " / ".join(f"{t:.3f}" for t in order)
+
+
+def slice_phase(card: str, kernels, dev) -> dict:
+    """Phase 13 (see the module docstring). Returns each kernel's launches
+    in 13a's skip run and on each of 13b's ranks."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.core.init import init_state
+    from tpusph_torch.core.io import load_dist_state, save_dist_state
+    from tpusph_torch.dist import sharded
+    from tpusph_torch.dist.comm import SlabComm, spawn_ranks
+    from tpusph_torch.dist.simulator import DistSimulator
+    from tpusph_torch.scripts import scaling_model, slab_census
+
+    names = ("rank", "density", "force")
+    cfg = tuned_config(N_MAIN)
+    comm = SlabComm(dev)
+
+    # a. the skip on one rank through the whole machinery
+    os.environ["TPUSPH_DIST_FULL_MACHINERY"] = "1"
+    try:
+        dcfg = sharded.DistConfig(1, cfg.padded_num_particles, DIST_HALO_ONE_CARD,
+                                  DIST_MIGRATION)
+        require(sharded._aligned(cfg, dcfg) and not sharded._elide_single(dcfg),
+                "13a: the one-rank line must splice")
+        start = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
+        step = sharded.make_sharded_step(cfg, dcfg, comm)
+        step(start)
+        runs = _skip_runs(step, start, kernels, SKIP_STEPS)
+        for mode in runs:
+            require(runs[mode]["launches"] == [SKIP_STEPS] * 3,
+                    f"13a, {mode}: launches {runs[mode]['launches']}")
+        counts = {m: (runs[m]["sorts"], runs[m]["skips"]) for m in runs}
+        require(counts == {"sort": (SKIP_STEPS, 0), "skip": (0, SKIP_STEPS)},
+                f"13a: (sorts, skips) {counts}")
+        hold_clean(runs["skip"]["states"][-1][1], N_MAIN, "13a")
+        inter = sharded._device_build(*start, cfg, dcfg, comm)[:8]
+        update_ms = {"sort": [], "skip": []}  # (device ms, wall ms), in turns
+        for mode in ("sort", "skip", "skip", "sort"):
+            os.environ["TPUSPH_DIST_FORCE_MIGSORT"] = "1" if mode == "sort" else "0"
+            try:
+                update_ms[mode].append(_update_device_ms(cfg, dcfg, comm, inter))
+            finally:
+                os.environ.pop("TPUSPH_DIST_FORCE_MIGSORT", None)
+    finally:
+        os.environ.pop("TPUSPH_DIST_FULL_MACHINERY", None)
+    launches = {name: {"skip_one_rank": runs["skip"]["launches"][i]} for i, name in
+                enumerate(names)}
+    turn_ms = {m: r["ms_per_step"] for m, r in runs.items()}
+    print(f"13a. sort skip, one rank, whole machinery, {N_MAIN} grid init: {SKIP_STEPS} steps "
+          f"bit for bit with TPUSPH_DIST_FORCE_MIGSORT=1 (positions, velocities, valid, pids, "
+          f"counters); (sorts, skips) {counts}; _device_update in turns sort, skip, skip, "
+          f"sort: device ms {_turns({m: [d for d, _ in t] for m, t in update_ms.items()})} "
+          f"(profiler), wall ms {_turns({m: [w for _, w in t] for m, t in update_ms.items()})}; "
+          f"eager ms a step {_turns(turn_ms)}; "
+          f"launches a run {runs['skip']['launches']}; {card}")
+
+    # b. the skip on four ranks sharing the card, a state with crossers
+    whole = init_state(cfg, random_init=True, device="cpu")
+    z = whole.position[:N_MAIN, 2].numpy()
+    planes = sharded.balanced_slab_planes(z, cfg, DIST_RANKS)
+    depth, speed = SKIP_KICK
+    vel = whole.velocity.clone()
+    for p in planes[1:-1]:
+        face = np.float32(p) * np.float32(cfg.h)
+        layer = torch.from_numpy((z >= face - depth) & (z < face))
+        vel[:N_MAIN, 2][layer] = speed
+    zc = np.clip((z / np.float32(cfg.h)).astype(np.int32), 0, cfg.num_cells_per_dim - 1)
+    per_plane = np.bincount(zc, minlength=cfg.num_cells_per_dim)
+    occupancy = [int(per_plane[a:b].sum()) for a, b in zip(planes, planes[1:])]
+    bands = [int(per_plane[a:a + 2].sum()) for a in planes[:-1]]
+    bands += [int(per_plane[b - 2:b].sum()) for b in planes[1:]]
+    up8 = lambda v: -(-int(v) // 8) * 8
+    caps = dict(n_devices=DIST_RANKS, dev_capacity=up8(1.25 * max(occupancy)),
+                halo_capacity=up8(1.5 * max(bands)), migration_capacity=DIST_MIGRATION,
+                slab_planes=planes)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        state_path = os.path.join(tmp, "state.npz")
+        np.savez(state_path, position=whole.position.numpy(), velocity=vel.numpy(),
+                 valid=whole.valid.numpy())
+        payload = {"n": N_MAIN, "dcfg": caps, "state": state_path, "out": tmp}
+        t0 = time.perf_counter()
+        spawn_ranks(skip_rank, DIST_RANKS, f"file://{tmp}/store", dev, (payload,),
+                    deadline_s=DIST_DEADLINE_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"skip{r}.json")) as f:
+                ranks.append(json.load(f))
+    sorts, skips = sum(r["sorts"] for r in ranks), sum(r["skips"] for r in ranks)
+    require(sorts > 0 and skips > 0, f"13b: sorts {sorts}, skips {skips}: one branch never ran")
+    for i, name in enumerate(names):
+        launches[name]["skip_four_ranks"] = [r["launches"][i] for r in ranks]
+    print(f"13b. sort skip, {DIST_RANKS} ranks on one card over gloo, {N_MAIN} random init, the "
+          f"rows within {depth} below each interior face (planes {planes}) given vz {speed}: "
+          f"{SKIP_STEPS} steps bit for bit with TPUSPH_DIST_FORCE_MIGSORT=1 on every rank; "
+          f"sorts {sorts}, skips {skips}; spawn to join {spawn_s:.1f} s")
+    for r in ranks:
+        print(f"  rank {r['rank']}: {r['occupancy']} particles, sorts {r['sorts']}, skips "
+              f"{r['skips']}, migration rows a step (most on a rank) "
+              f"{r['max_migration_send']}, ms a step in turns sort, skip, skip, sort "
+              f"{_turns(r['ms_per_step'])}")
+
+    # c. checkpoints: DistSimulator, save after 10 steps, load, 10 more
+    sim = DistSimulator(cfg, device=dev)
+    sim.setup()
+    sim.run(CHECKPOINT_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dist.npz")
+        t0 = time.perf_counter()
+        save_dist_state(path, sim.state, sim.cfg, sim.dcfg, sim.comm)
+        save_s = time.perf_counter() - t0
+        state, cfg2, dcfg2 = load_dist_state(path, comm)
+    require(cfg2 == cfg and dcfg2 == sim.dcfg, f"13c: loaded {cfg2} {dcfg2}")
+    sim.run(CHECKPOINT_STEPS)
+    want = sim.get_position()
+    resumed, aux = sharded.make_sharded_run(cfg2, dcfg2, comm, CHECKPOINT_STEPS)(state)
+    hold_clean(aux, N_MAIN, "13c")
+    got = sharded.collect_state(resumed, N_MAIN, comm)["position"]
+    err = float(np.abs(got - want).max())
+    require(err <= 1e-5, f"13c: the resumed run is {err:.3e} from the uninterrupted one")
+    print(f"13c. checkpoint: DistSimulator {CHECKPOINT_STEPS} steps, save_dist_state "
+          f"({save_s:.2f} s), load_dist_state, {CHECKPOINT_STEPS} more steps: max|dpos| "
+          f"{err:.3e} from {2 * CHECKPOINT_STEPS} uninterrupted steps (atol 1e-5)")
+
+    # d. the census on the card against tpusph's
+    want = scaling_model.load_json(os.path.join(REPO, "scaling", f"census_n{N_MAIN}.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got = slab_census.main([str(N_MAIN), str(CENSUS_STEPS), str(CENSUS_CHUNK),
+                                "--device", str(dev)], out_dir=tmp)
+        census_s = time.perf_counter() - t0
+    require(got["backend"] == "kernels" and got["init"] == "grid", f"13d: {got['backend']}")
+    bad = slab_census.compare(got, want)
+    require(not bad, f"13d: the census departs from scaling/census_n{N_MAIN}.json: {bad}")
+    diff = slab_census.differences(got, want)
+    print(f"13d. slab census, {N_MAIN} grid init, {CENSUS_STEPS} steps in chunks of "
+          f"{CENSUS_CHUNK} on the card ({census_s:.1f} s): within the bars of "
+          f"scaling/census_n{N_MAIN}.json at every checkpoint; {len(diff)} counts differ"
+          + (": " + "; ".join(diff[:12]) if diff else ""))
+
+    # e. the projection from the repo's artifacts
+    with tempfile.TemporaryDirectory() as tmp:
+        proj = scaling_model.main([], out_dir=tmp)
+    require(proj["tables"], "13e: no projection table")
+    print(f"13e. scaling_model on the repo's artifacts (link assumed, not measured); {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this runs only on a GPU",
@@ -1901,6 +2192,8 @@ def main() -> int:
     for name, brick in brick_phase(card, kernels, reference, timed_rate, slab, dev).items():
         dist_launches[name].update(brick)
     bench_launches = bench_phase(card, kernels, chain_rate, dev)
+    for name, counts in slice_phase(card, kernels, dev).items():
+        dist_launches[name].update(counts)
 
     for name, r in results.items():
         r["launches_per_replay"] = replay_launches.get(name, 0)

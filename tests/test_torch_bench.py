@@ -175,20 +175,27 @@ def test_bench_cell_list_backend_in_process(bench_env, capsys):
     assert line["parity"] == "skipped" and line["value"] > 0
 
 
-@pytest.mark.parametrize("full", ["0", "1"], ids=["elided", "full_machinery"])
-def test_dist_bench_one_rank(full, bench_env, tmp_path, capsys):
+@pytest.mark.parametrize("full,migsort", [("0", "0"), ("1", "0"), ("1", "1")],
+                         ids=["elided", "full_machinery", "full_machinery_migsort"])
+def test_dist_bench_one_rank(full, migsort, bench_env, tmp_path, capsys):
+    """One rank of the sharded bench: its line, and its artifact named by
+    what ran: `_FULL` the whole machinery with the migration-free sort
+    skip live, `_FULL_MIGSORT` with TPUSPH_DIST_FORCE_MIGSORT=1."""
     bench_env.setenv("TPUSPH_BENCH_DIST", "1")
     bench_env.setenv("TPUSPH_DIST_FULL_MACHINERY", full)
+    bench_env.setenv("TPUSPH_DIST_FORCE_MIGSORT", migsort)
     bench_env.setenv("TPUSPH_BENCH_ARTIFACT_DIR", str(tmp_path))
     bench_torch.main()
     line = _last_line(capsys.readouterr().out)
     assert line["metric"] == f"torch_sph_dist_timesteps_per_sec_n{N}_r1"
     assert line["parity"] == "pass" and line["device"] == "cpu" and line["value"] > 0
-    name = f"TORCH_DIST_BENCH{'_FULL' if full == '1' else ''}_n{N}.json"
+    suffix = {("0", "0"): "", ("1", "0"): "_FULL", ("1", "1"): "_FULL_MIGSORT"}[full, migsort]
+    name = f"TORCH_DIST_BENCH{suffix}_n{N}.json"
     assert os.listdir(tmp_path) == [name]
     art = json.loads((tmp_path / name).read_text())
     assert {k: art[k] for k in line} == line
     assert art["full_machinery"] is (full == "1") and art["right_sized"] is True
+    assert art["force_migsort"] is (migsort == "1") and art["device_busy"] is None
     assert art["ranks"] == 1 and art["steps"] == 3 and art["backend"] == "kernels"
     assert art["dev_capacity"] >= N and art["slack"] is None
 

@@ -181,12 +181,17 @@ def test_a_slab_that_does_not_fit_raises(cases):
 
 def test_the_step_never_reads_the_device():
     """No `.item()`, `int()`, `bool()`, `float()`, `.tolist()` or `.cpu()`
-    in the per-rank functions: their offsets stay on the device."""
+    in the per-rank functions: their offsets stay on the device. The one
+    read a step is the migration-free sort skip's decision, a single
+    `.tolist()` in `_skip_order` (module docstring §6)."""
+    reads = r"\.item\(|\bint\(|\bbool\(|\.tolist\(|\.cpu\(|\.numpy\("
     for fn in (sharded._device_build, sharded._device_update, sharded._device_step,
-               sharded._compute_sorted_fields, sharded._take, sharded._put, sharded._compact):
+               sharded._compute_sorted_fields, sharded._take, sharded._put, sharded._compact,
+               sharded._final_hop, sharded._skip_order):
         src = inspect.getsource(fn)
         src = src[src.index('"""', src.index('"""') + 3):]  # past the docstring
-        assert not re.search(r"\.item\(|\bint\(|\bbool\(|\.tolist\(|\.cpu\(|\.numpy\(", src), fn
+        found = re.findall(reads, src)
+        assert found == ([".tolist("] if fn is sharded._skip_order else []), (fn, found)
 
 
 def test_entry_points_default_to_the_card_and_the_kernels():

@@ -79,3 +79,17 @@ def test_build_cell_list_equal(kind, n):
     assert got.starts.shape == (cfg.num_cells + 2,)
     assert int(got.starts[-1]) == pos.shape[0]  # starts[nc + 1] == n
     assert int(got.starts[cfg.num_cells]) == int(valid.sum())
+
+
+@pytest.mark.parametrize("kind,n", CASES, ids=IDS)
+def test_flatten_rowmajor_equal(kind, n):
+    """`flatten_rowmajor` of the clamped cells is tpusph's, and the key of
+    every valid row."""
+    pos, valid = _case(kind, n)
+    cfg = tdefault(n, chunk_size=512)
+    jk = jgrid.compute_keys(jnp.asarray(pos), jnp.asarray(valid), jdefault(n, chunk_size=512))
+    tk = tgrid.compute_keys(torch.from_numpy(pos), torch.from_numpy(valid), cfg)
+    got = tgrid.flatten_rowmajor(tk.cell, cfg)
+    want = jgrid.flatten_rowmajor(jk.cell, jdefault(n, chunk_size=512))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy()[valid], tk.key.numpy()[valid])

@@ -121,6 +121,26 @@ def test_click_kick_matches_tpusph(px, py):
     assert (ref != 0).any() == timp.click_in_box(px, py)
 
 
+@pytest.mark.parametrize("px,py", [(400, 300), CLICK_ON_FLUID], ids=["centre", "on-fluid"])
+def test_apply_click_impulse_matches_tpusph(px, py):
+    """`apply_click_impulse` (what tpusph's dist tests use as the
+    single-card click) on the grid init state, velocities made nonzero,
+    with the positions of one step earlier: the velocities equal tpusph's
+    bit for bit, kicked where the click lands on fluid."""
+    a = _start()
+    a["velocity"] = np.random.default_rng(5).normal(size=a["velocity"].shape).astype(np.float32)
+    pre = a["position"] + np.float32(0.05)
+    want = jimp.apply_click_impulse(
+        JState(**{f: jnp.asarray(v) for f, v in a.items()}), jnp.asarray(pre), (px, py),
+        jdefault(N))
+    got = timp.apply_click_impulse(state_from_numpy(a, "cpu"), torch.from_numpy(pre),
+                                   np.array([px, py]), tdefault(N))
+    np.testing.assert_array_equal(got.velocity.numpy(), np.asarray(want.velocity))
+    kicked = (got.velocity.numpy() != a["velocity"]).any()
+    assert kicked == ((px, py) == CLICK_ON_FLUID)  # the centre misses N = 512's corner
+    np.testing.assert_array_equal(got.position.numpy(), a["position"])
+
+
 def test_slab_multiplicity_matches_tpusph():
     np.testing.assert_array_equal(
         timp._slab_multiplicity(tdefault(N)).numpy(),

@@ -271,7 +271,8 @@ def test_port_never_imports_jax():
         "tpusph_torch.dist.simulator, tpusph_torch.graft_entry, "
         "tpusph_torch.scripts.build_bench, tpusph_torch.scripts.dist_scale_check, "
         "tpusph_torch.scripts.fields_profile, tpusph_torch.scripts.freemode_bench, "
-        "tpusph_torch.scripts.dist_profile, bench_torch, chip_smoke\n"
+        "tpusph_torch.scripts.dist_profile, tpusph_torch.scripts.slab_census, "
+        "tpusph_torch.scripts.scaling_model, bench_torch, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpusph')]\n"
         "assert not bad, bad\n"
     )

@@ -299,3 +299,105 @@ def dryrun_tight_halo(comm) -> None:
                       migration_capacity=256)
     graft_entry.slab_leg(comm, cfg, dcfg, graft_entry.dryrun_state(cfg), "kernels", 1, 0,
                          "tight")
+
+
+def _trajectory(step, state, steps: int) -> list:
+    """(DistState, counters as ints) after each of `steps` steps."""
+    out = []
+    for _ in range(steps):
+        state, aux = step(state)
+        out.append((state, [int(a) for a in aux]))
+    return out
+
+
+def skip_checks(comm, cases: dict, steps: int) -> None:
+    """The migration-free sort skip against TPUSPH_DIST_FORCE_MIGSORT=1 on
+    this rank count, on the grid init (no slab-crossers) and on the
+    drifting random state (crossers): every row of every field and the
+    nine counters equal after every step; the branch counters say which
+    ran, summed over the ranks."""
+    import os
+
+    from tpusph_torch.dist import sharded
+
+    for cfg, name in ((dense_cfg(), "grid"), (sparse_cfg(), "drift")):
+        dcfg = _dcfg(comm, cfg)
+        start = distribute_state(_as_state(cases[name]), cfg, dcfg, comm)
+        step = make_sharded_step(cfg, dcfg, comm)
+        runs, counts = {}, {}
+        for forced in ("1", "0"):
+            os.environ["TPUSPH_DIST_FORCE_MIGSORT"] = forced
+            sharded.migration_sorts = sharded.migration_skips = 0
+            runs[forced] = _trajectory(step, start, steps)
+            (sorts, skips), _ = comm.reduce(
+                [sharded.migration_sorts, sharded.migration_skips], [0]
+            )
+            counts[forced] = (int(sorts), int(skips))
+        os.environ.pop("TPUSPH_DIST_FORCE_MIGSORT")
+        for k, ((a, aux_a), (b, aux_b)) in enumerate(zip(runs["1"], runs["0"])):
+            assert aux_a == aux_b, (name, k, aux_a, aux_b)
+            for x, y, field in zip(a, b, DistState._fields):
+                assert torch.equal(x, y), (name, k, field)
+        _clean(DistAux(*runs["0"][-1][1]), cfg.num_particles)
+        assert counts["1"] == (comm.size * steps, 0), counts
+        sorts, skips = counts["0"]
+        assert sorts + skips == comm.size * steps, counts
+        crossed = sum(aux[-1] > 0 for _, aux in runs["0"])  # max_migration_send
+        if name == "grid":
+            assert crossed == 0 and counts["0"] == (0, comm.size * steps), counts
+        else:
+            assert crossed > 0 and sorts > 0 and skips > 0, (counts, crossed)
+
+
+def jax_skip_checks(comm, payload: dict) -> None:
+    """Two ranks against tpusph's `make_sharded_run` from the same
+    distributed state, the skip live on both sides: positions and
+    velocities by pid within 1e-5 after the run, and both branches of the
+    migration step taken on this side."""
+    from tpusph_torch.dist import sharded
+
+    cfg = sparse_cfg()
+    dcfg = DistConfig(**payload["dcfg"])
+    state = dist_state_from_numpy(payload["start"], comm.rank, dcfg, "cpu")
+    sharded.migration_sorts = sharded.migration_skips = 0
+    run = make_sharded_run(cfg, dcfg, comm, payload["steps"], "cell_list")
+    state, aux = run(state)
+    assert [int(a) for a in aux] == payload["aux"], (aux, payload["aux"])
+    got = collect_state(state, cfg.num_particles, comm)
+    for f in ("position", "velocity"):
+        np.testing.assert_allclose(got[f], payload[f], rtol=1e-5, atol=1e-5)
+    (sorts, skips), _ = comm.reduce([sharded.migration_sorts, sharded.migration_skips], [0])
+    assert int(sorts) > 0 and int(skips) > 0, (sorts, skips)
+
+
+def checkpoint_save(comm, path: str, ref_path: str) -> None:
+    """tpusph's checkpoint round trip, the saving side: `DistSimulator` on
+    this rank count from seed-13 random init, 2 steps, `save_dist_state`,
+    then 2 more steps; rank 0 keeps the uninterrupted positions."""
+    from tpusph_torch.core.io import save_dist_state
+    from tpusph_torch.dist.simulator import DistSimulator
+
+    cfg = sparse_cfg()
+    sim = DistSimulator(cfg, comm, random_init=True, seed=13, device="cpu")
+    sim.setup()
+    sim.run(2)
+    save_dist_state(path, sim.state, sim.cfg, sim.dcfg, sim.comm)
+    sim.run(2)
+    position = sim.get_position()  # a collective: every rank calls it
+    if comm.rank == 0:
+        np.save(ref_path, position)
+
+
+def checkpoint_resume(comm, path: str, ref_path: str) -> None:
+    """The resuming side: load the checkpoint onto this rank count (a
+    DistConfig of its own, the default heuristics), 2 steps, positions by
+    pid within 1e-5 of the uninterrupted run."""
+    from tpusph_torch.core.io import load_dist_state
+    from tpusph_torch.dist.simulator import default_dist_config
+
+    state, cfg, dcfg = load_dist_state(path, comm)
+    assert cfg == sparse_cfg() and dcfg == default_dist_config(cfg, comm.size), dcfg
+    state, aux = make_sharded_run(cfg, dcfg, comm, 2)(state)
+    _clean(aux, cfg.num_particles)
+    got = collect_state(state, cfg.num_particles, comm)["position"]
+    np.testing.assert_allclose(got, np.load(ref_path), rtol=1e-5, atol=1e-5)

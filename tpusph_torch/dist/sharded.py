@@ -33,11 +33,22 @@ mesh collectives stood. Per step and rank:
   6. **Migration and compaction, one sort.** Rows are category-sorted
      dn-migrants < kept < up-migrants < dead, so one stable sort yields
      both direction buffers and the kept-first compacted state; arrivals
-     scatter into the free tail. The JAX package skips this sort on
-     steps without migrants (a `lax.cond`); eager PyTorch has no
-     device-side branch, and with zero migrants the sort reproduces the
-     skip's rows bit for bit, so the sort is always taken here.
-     On a line of one rank migration cannot happen and the phase is elided.
+     scatter into the free tail. On a rank without slab-crossers in a
+     spliced layout (step 3) the sort is skipped, as the JAX package
+     skips it with a `lax.cond`: there the live rows are one contiguous
+     block behind the n_lo lo-halo rows, and the stable sort of a
+     category that is "kept" on that block and "dead" everywhere else
+     moves the block to the front and the n_lo rows behind it, a
+     rotation of the first n_lo + n_kept rows that `_skip_order` gives
+     without sorting, bit for bit every row the sort gives. The
+     exchange still sends its fixed-size buffers, their lanes masked.
+     Eager PyTorch has no device-side branch, so the choice is a host
+     read of whether this rank has crossers, one wait a step, just
+     before the migration exchange (which on a host-staged group waits
+     on the card anyway). `migration_sorts` and `migration_skips`
+     count the branches taken. TPUSPH_DIST_FORCE_MIGSORT=1 turns the
+     skip off. On a line of one rank migration cannot happen and the
+     phase is elided.
 
 All buffers have fixed capacity with overflow detection, never a silent
 drop: an overflowing step returns wrong rows and counters that say so.
@@ -45,8 +56,8 @@ Offsets that depend on the data (`n_valid`, `n_lo`, `n_dn`, ...) stay 0-d
 tensors on the device: a dynamic slice is a gather at `offset + arange`
 and a dynamic update a write at the same index, the start clamped so the
 window fits as `lax.dynamic_slice` clamps it. A step therefore waits on
-the card nowhere but in the exchange of a host-staged group and where
-the caller reads the counters.
+the card nowhere but in the exchange of a host-staged group, in the
+skip's decision (§6) and where the caller reads the counters.
 """
 
 from __future__ import annotations
@@ -148,6 +159,12 @@ class DistAux(NamedTuple):
     max_migration_send: torch.Tensor  # peak migration rows a direction
 
 
+# the branches of the migration step (module docstring §6) a process has
+# taken since these were last set to 0: category sorts and skips
+migration_sorts = 0
+migration_skips = 0
+
+
 # ----------------------------------------------- dynamic slices as gathers
 
 
@@ -223,10 +240,10 @@ def _slab_geometry(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm):
 
 
 def _force_migsort() -> bool:
-    """TPUSPH_DIST_FORCE_MIGSORT=1 switches the JAX package's
-    migration-free sort skip off. The port always takes the sort (module
-    docstring §6), so the variable changes nothing here; it is read so that
-    a command line carries over."""
+    """TPUSPH_DIST_FORCE_MIGSORT=1 switches the migration-free sort skip
+    off (module docstring §6): every step of a multi-rank line then takes
+    the category sort, as the JAX package's variable does there. Read at
+    every step."""
     return os.environ.get("TPUSPH_DIST_FORCE_MIGSORT") == "1"
 
 
@@ -412,24 +429,57 @@ def _device_update(
         v = torch.stack([nvx, nvy, nvz], dim=1)
         return x, v, live, torch.where(live, tag_s, -1), (ovf_w, 0, 0, live.sum(), 0)
 
-    # ---- migration of slab-crossers (one hop) and kept-first repacking
+    # ---- migration of slab-crossers (one hop) and kept-first repacking;
+    # without crossers on a spliced layout the category sort is skipped
+    global migration_sorts, migration_skips
     mig_dn, mig_up, mis_mask = _migration_predicates(nz, live, cfg, dcfg, comm)
     nrows = torch.stack([nx, ny, nz, nvx, nvy, nvz])
+    order = None
+    if _aligned(cfg, dcfg) and not _force_migsort():
+        order = _skip_order(live, mig_dn, mig_up, nrows.shape[1] + m_cap)
+    if order is None:
+        migration_sorts += 1
+    else:
+        migration_skips += 1
     x, v, valid_new, pid_new, ovf_mig, mig_send = _final_hop(
-        nrows, tag_s, live, mig_dn, mig_up, c_dev, m_cap, comm
+        nrows, tag_s, live, mig_dn, mig_up, c_dev, m_cap, comm, order
     )
     return x, v, valid_new, pid_new, (ovf_w, ovf_mig, mis_mask.sum(), valid_new.sum(), mig_send)
 
 
-def _final_hop(nrows, tag, live, mig_dn, mig_up, c_dev: int, m_cap: int, line):
+def _skip_order(live, mig_dn, mig_up, length: int):
+    """The migration-free sort skip (module docstring §6): None where this
+    rank has slab-crossers, else the order of `length` rows that the
+    category sort of `_final_hop` yields. In the spliced layout the live
+    rows are the block [n_lo, n_lo + n_kept) behind the lo-halo rows;
+    with every live row kept and every other row dead, the stable sort
+    puts that block first and the rows before it next, the rest in
+    place: the first n_lo + n_kept rows rotated by n_lo. The step's one
+    read of the card takes the crossers, n_lo and n_kept together, so the
+    order is one copy of three slices. The JAX package's skip slices
+    c_dev rows from n_lo, which gives the same kept block but the hi-halo
+    rows behind it where the sort puts the lo-halo rows; those slots are
+    not valid, so only their contents differ."""
+    first_live = live.to(torch.int32).argmax()  # n_lo; 0 where no row is live
+    crossers, n_lo, n_kept = torch.stack(
+        [(mig_dn | mig_up).sum(), first_live, live.sum()]).tolist()
+    if crossers:
+        return None
+    lane = _lane(length, live.device)
+    span = n_lo + n_kept
+    return torch.cat([lane[n_lo:span], lane[:n_lo], lane[span:]])
+
+
+def _final_hop(nrows, tag, live, mig_dn, mig_up, c_dev: int, m_cap: int, line, order=None):
     """The last migration hop and the kept-first repacking, by one stable
     category sort: dn-migrants < kept < up-migrants < dead, so the sorted
     rows are both direction buffers (the prefix, the slice after the kept
     block) and the compacted state (the middle block). A particle cannot
     cross both faces. `nrows` [6, n] and `tag` are the rows after
     integration (a tag ≥ 0 is a live pid), `line` the line of ranks
-    across the faces. Arrivals scatter into the free tail of `c_dev`
-    slots. Returns (x, v, valid_new, pid_new, overflow, max_send): the
+    across the faces. `order`, where given, is the sort's order found
+    without sorting (`_skip_order`). Arrivals scatter into the free tail
+    of `c_dev` slots. Returns (x, v, valid_new, pid_new, overflow, max_send): the
     overflow of the two direction buffers, of the kept block beyond c_dev
     (rows that arrived on earlier axes can exceed it; local rows alone
     cannot) and of the free tail, not yet reduced."""
@@ -439,13 +489,14 @@ def _final_hop(nrows, tag, live, mig_dn, mig_up, c_dev: int, m_cap: int, line):
     ovf_mig = (n_dn - m_cap).clamp(min=0) + (n_up - m_cap).clamp(min=0)
     ovf_mig = ovf_mig + (n_kept - c_dev).clamp(min=0)
 
-    cat = torch.where(mig_dn, 0, torch.where(mig_up, 2, torch.where(kept, 1, 3)))
     # m_cap dead rows behind the sort keep the kept and up slices below in
     # bounds for any capacities whenever the overflow flags are clean
     # (n_dn ≤ m_cap ⇒ kept fits; n_dn + n_kept ≤ c_dev ⇒ up fits)
-    order = torch.sort(
-        torch.cat([cat, cat.new_full((m_cap,), 3)]).to(torch.uint8), stable=True
-    ).indices
+    if order is None:
+        cat = torch.where(mig_dn, 0, torch.where(mig_up, 2, torch.where(kept, 1, 3)))
+        order = torch.sort(
+            torch.cat([cat, cat.new_full((m_cap,), 3)]).to(torch.uint8), stable=True
+        ).indices
     mrows = torch.cat([nrows, nrows.new_zeros((6, m_cap))], dim=1).index_select(1, order)
     mtag = torch.cat([tag, tag.new_full((m_cap,), -2)]).index_select(0, order)
 

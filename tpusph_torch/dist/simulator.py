@@ -35,6 +35,11 @@ from tpusph_torch.interact.impulse import click_in_box
 GROWTH_RETRIES = 8  # capacity doublings before a step is given up
 
 
+def round_capacity(x) -> int:
+    """A buffer capacity of at least x rows: a multiple of 256, at least 256."""
+    return max(256, -(-int(x) // 256) * 256)
+
+
 def default_dist_config(cfg: SimConfig, n_devices: int, slack: float = 2.0) -> DistConfig:
     """Capacity heuristics: each slab gets `slack`× the uniform share (the
     fluid clusters under gravity along y, and slabs are along z, so the
@@ -42,10 +47,10 @@ def default_dist_config(cfg: SimConfig, n_devices: int, slack: float = 2.0) -> D
     the 2h ghost layer's share of a slab; migration ≈ a few percent a
     step."""
     share = -(-cfg.num_particles // n_devices)
-    rnd = lambda x: max(256, -(-int(x) // 256) * 256)
-    dev_cap = rnd(share * slack)
-    halo = min(rnd(max(share * 2 * cfg.h / (cfg.box_dim / n_devices), 256) * slack), dev_cap)
-    mig = min(rnd(max(share * 0.05, 128)), dev_cap // 2)
+    dev_cap = round_capacity(share * slack)
+    band = share * 2 * cfg.h / (cfg.box_dim / n_devices)  # the 2h layer's share of a slab
+    halo = min(round_capacity(max(band, 256) * slack), dev_cap)
+    mig = min(round_capacity(max(share * 0.05, 128)), dev_cap // 2)
     return DistConfig(
         n_devices=n_devices, dev_capacity=dev_cap, halo_capacity=halo, migration_capacity=mig
     )
@@ -58,13 +63,12 @@ def default_mesh3d_config(cfg: SimConfig, mesh_shape, slack: float = 2.0) -> mes
     percent an axis a step."""
     n_dev = math.prod(mesh_shape)
     share = -(-cfg.num_particles // n_dev)
-    rnd = lambda x: max(256, -(-int(x) // 256) * 256)
-    dev_cap = rnd(share * slack)
+    dev_cap = round_capacity(share * slack)
     halos, migs = [], []
     for m in mesh_shape:
         width = cfg.box_dim / m
-        halos.append(min(rnd(max(share * 4 * cfg.h / width, 256) * slack), dev_cap))
-        migs.append(min(rnd(max(share * 0.05, 128)), dev_cap // 2))
+        halos.append(min(round_capacity(max(share * 4 * cfg.h / width, 256) * slack), dev_cap))
+        migs.append(min(round_capacity(max(share * 0.05, 128)), dev_cap // 2))
     return mesh3d.Mesh3DConfig(
         mesh_shape=tuple(mesh_shape), dev_capacity=dev_cap,
         halo_capacity=tuple(halos), migration_capacity=tuple(migs),
@@ -354,11 +358,10 @@ class DistSimulator:
         host0 = self.to_host_state() if restore else None
         self.run(warmup_steps)
         aux = self.last_aux
-        rnd = lambda x: max(256, -(-int(x) // 256) * 256)
         dev_margin = 1.0 if self._n_dev == 1 else margin
-        dev = min(rnd(aux.max_dev_particles * dev_margin), self.dcfg.dev_capacity)
-        halo = rnd(max(aux.max_halo_send, 1) * margin)
-        mig = rnd(max(aux.max_migration_send, 1) * margin)
+        dev = min(round_capacity(aux.max_dev_particles * dev_margin), self.dcfg.dev_capacity)
+        halo = round_capacity(max(aux.max_halo_send, 1) * margin)
+        mig = round_capacity(max(aux.max_migration_send, 1) * margin)
         if self.mesh_shape is None:
             # replace() keeps the balance-aware slab_planes
             self.dcfg = dataclasses.replace(

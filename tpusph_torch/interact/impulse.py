@@ -136,13 +136,20 @@ def apply_kick(velocity, pre_step_position, valid, click_cell, gain, cfg: SimCon
     return torch.where(gain > 0, velocity + kick, velocity)
 
 
+def apply_click_impulse(state: FluidState, pre_step_position, click_px, cfg: SimConfig) -> FluidState:
+    """`state` with the kick of a click at host pixel coordinates
+    `click_px` added to its velocities, cells from `pre_step_position`;
+    the pixel → cell conversion on the host (click_cell_from_px)."""
+    px, py = (int(v) for v in np.asarray(click_px))
+    kick = click_kick(pre_step_position, state.valid, click_cell_from_px(px, py, cfg), cfg)
+    return dataclasses.replace(state, velocity=state.velocity + kick)
+
+
 def make_impulse(cfg: SimConfig):
     """`(state, pre_pos, click_px) -> state`: the pixel → cell conversion on
     the host, the kick on the state's device."""
 
     def impulse(state: FluidState, pre_pos, click_px) -> FluidState:
-        px, py = (int(v) for v in click_px)
-        kick = click_kick(pre_pos, state.valid, click_cell_from_px(px, py, cfg), cfg)
-        return dataclasses.replace(state, velocity=state.velocity + kick)
+        return apply_click_impulse(state, pre_pos, click_px, cfg)
 
     return impulse

@@ -43,7 +43,15 @@ class GridKeys(NamedTuple):
     oob_count: torch.Tensor  # int64[] valid particles outside [0, C)³
 
 
+def flatten_rowmajor(cell: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """int[..., 3] cell coordinates → the flat key x + C·y + C²·z."""
+    c = cfg.num_cells_per_dim
+    return cell[..., 0] + c * cell[..., 1] + (c * c) * cell[..., 2]
+
+
 def _flat_key(cx, cy, cz, valid, cfg: SimConfig):
+    """flatten_rowmajor of the clamped cell on field rows, the sentinel for
+    invalid slots."""
     c = cfg.num_cells_per_dim
     key = cx.clamp(0, c - 1) + c * cy.clamp(0, c - 1) + (c * c) * cz.clamp(0, c - 1)
     return torch.where(valid, key, cfg.num_cells).to(torch.int32)
@@ -54,8 +62,9 @@ def compute_keys(position: torch.Tensor, valid: torch.Tensor, cfg: SimConfig) ->
     c = cfg.num_cells_per_dim
     raw = cell_coords(position, cfg)
     oob = torch.any((raw < 0) | (raw >= c), dim=-1)
-    key = _flat_key(raw[:, 0], raw[:, 1], raw[:, 2], valid, cfg)
-    return GridKeys(key=key, cell=raw.clamp(0, c - 1), oob_count=(oob & valid).sum())
+    cell = raw.clamp(0, c - 1)
+    key = torch.where(valid, flatten_rowmajor(cell, cfg), cfg.num_cells).to(torch.int32)
+    return GridKeys(key=key, cell=cell, oob_count=(oob & valid).sum())
 
 
 def compute_keys_fields(x, y, z, valid, cfg: SimConfig):

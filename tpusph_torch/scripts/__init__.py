@@ -40,6 +40,12 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def device_card(device) -> str:
+    """`card_line()` for a card, `cpu` for the CPU: what a result records
+    as the device it ran on."""
+    return card_line() if torch.device(device).type == "cuda" else "cpu"
+
+
 def timed(fn, reps: int) -> float:
     """Seconds of one call of `fn`: CUDA events recorded around it on the
     current stream, min over `reps` calls after one warm-up call."""
