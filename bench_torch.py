@@ -324,11 +324,15 @@ def main_dist() -> None:
     not the asked rank count exits 2.
 
     Capacities are measured: `right_size(warmup_steps=10)` unless
-    TPUSPH_BENCH_DIST_SLACK pins a slack. One warm `run(steps)`, the state
-    set up again, one timed `run(steps)` up to a synchronize. The run is
-    eager (a Python loop of steps), so the number is host-bound; on a card
-    a profiled run of PROFILED_DIST_STEPS more gives the device's busy
-    share. Rank 0 prints the line and writes it with its capacities to
+    TPUSPH_BENCH_DIST_SLACK pins a slack. One warm `run(steps)` (on one
+    rank it captures the chain's CUDA graph), the state set up again, one
+    timed `run(steps)` up to a synchronize: on one rank one replay, as
+    tpusph's chain is one dispatch; with peers a Python loop of eager
+    steps, host-bound. On a card a profiled run of PROFILED_DIST_STEPS more
+    (made and warmed first) gives the device's busy share. The artifact
+    records whether the run replayed a graph and the migration branches
+    (category sorts, skips) that the timed run took. Rank 0 prints the
+    line and writes it with its capacities to
     TORCH_DIST_BENCH[_FULL[_MIGSORT]][_n{N}].json in
     TPUSPH_BENCH_ARTIFACT_DIR (the repo root by default): `_FULL` with
     TPUSPH_DIST_FULL_MACHINERY=1, the engine as it runs by default (the
@@ -338,6 +342,7 @@ def main_dist() -> None:
     import torch.distributed as dist
 
     from tpusph_torch.core.init import init_state
+    from tpusph_torch.dist import sharded
     from tpusph_torch.dist.comm import join_torchrun
     from tpusph_torch.dist.simulator import DistSimulator, default_dist_config
     from tpusph_torch.scripts import device_card
@@ -372,11 +377,14 @@ def main_dist() -> None:
         # trajectory, so that the timed run makes nothing
         sim.run(steps)
         sim.setup(state0_host)
+        branches0 = sharded.migration_counts()
         _sync(device)
         t0 = time.perf_counter()
         sim.run(steps)
         _sync(device)
         dt = time.perf_counter() - t0
+        sorts, skips = (b - a for a, b in zip(branches0, sharded.migration_counts()))
+        sim.run(PROFILED_DIST_STEPS)  # made (captured on one rank) before it is profiled
         busy = _busy_share(lambda: sim.run(PROFILED_DIST_STEPS), device)
         if not _is_rank0(sim.comm):
             return
@@ -395,6 +403,7 @@ def main_dist() -> None:
             migration_capacity=sim.dcfg.migration_capacity, right_sized=right_sized,
             slack=float(slack_env) if slack_env else None, full_machinery=full,
             force_migsort=migsort, device_busy=busy, card=device_card(device),
+            graphed=sim.comm.size == 1, migration_sorts=sorts, migration_skips=skips,
         )
         name = "TORCH_DIST_BENCH" + ("_FULL" if full else "")
         if migsort and (full or ranks > 1):  # the skip is there to turn off

@@ -44,7 +44,9 @@ Phases, each of which raises on failure (exit code 1):
      steps on the CPU, multiset-compared at the same bars;
   5. the timed path through the user's entry points: Simulator at 262,144
      particles, 3 warm-up steps and 100 timed `simulate_and_time` steps
-     (the copy to the host double-buffered on a side stream); prints the
+     (each phase one CUDA-graph replay, the first step's capture and its
+     warm-up among the warm-up steps; the copy to the host double-buffered
+     on a side stream); prints the
      Times table and timesteps/s, checks that each kernel was launched,
      that no particle left the grid and that the state is finite;
   6. the rate probes: each probe kernel against its plain version for
@@ -89,7 +91,7 @@ Phases, each of which raises on failure (exit code 1):
      a. at N = 4096, grid and random init: `simulate_chunk(5)` with a click
         at step 2 (one graph replay) equals 5 sequential `simulate()` calls
         bit for bit (snapshots, final velocity), each kernel launched 5×
-        its per-step count; `dispatch_chunk(3)` with packed pixels and with
+        its count in one replayed step; `dispatch_chunk(3)` with packed pixels and with
         bitmaps equals the projections of the sequential positions;
      b. at 262,144, grid init: 20 chained fields steps (`make_fields_chain`)
         against 20 `step_kernels` steps, multiset-compared by nearest
@@ -121,8 +123,9 @@ Phases, each of which raises on failure (exit code 1):
      init, backend `kernels`:
      a. one rank, elided: 20 `make_sharded_step` steps against 20
         `step_kernels` steps, multiset-compared as in 8b; counters clean;
-        one rank, one density and one force launch a step; timesteps/s of
-        a 100-step `make_sharded_run` beside phase 5's and phase 8's;
+        one rank, one density and one force launch a step (the step's
+        capture made first); timesteps/s of a 100-step `make_sharded_run`
+        (one replay) beside phase 5's and phase 8's;
      b. the same with TPUSPH_DIST_FULL_MACHINERY=1: dead halo buffers,
         the splice and the migration sort;
      c. four ranks on the one card, a process each over a gloo group
@@ -143,8 +146,8 @@ Phases, each of which raises on failure (exit code 1):
         axis, migration 4,096): 20 `make_mesh3d_step` steps
         against 20 `step_kernels` steps, multiset-compared as in 8b;
         counters clean; one rank, one density and one force launch a step;
-        timesteps/s of a 100-step `make_mesh3d_run` and its operations a
-        step on the card, beside 10a and 10b;
+        timesteps/s of a 100-step `make_mesh3d_run` (one replay) and its
+        operations a step on the card, beside 10a and 10b;
      b. four ranks as a (1, 2, 2) grid on the one card over gloo (the y and
         x phases staged, corner rows forwarded), `DistSimulator` with its
         balanced brick planes and capacities (a warm-up `run(20)` grows
@@ -170,8 +173,10 @@ Phases, each of which raises on failure (exit code 1):
      `scripts.build_bench` once, every time positive;
  13. the last modules: the migration-free sort skip of the z-slab engine,
      sharded checkpoints, the slab census and the scaling model:
-     a. one slab rank through the whole machinery at 262,144 grid init: 20
-        steps with TPUSPH_DIST_FORCE_MIGSORT=1 and 20 with the skip, every
+     a. one slab rank through the whole machinery at 262,144 grid init, the
+        eager step (`make_sharded_step(...).eager`, whose skip is the host
+        read a line of several ranks takes): 20 steps with
+        TPUSPH_DIST_FORCE_MIGSORT=1 and 20 with the skip, every
         row of positions, velocities, valid and pids and the nine counters
         bit for bit after every step, (sorts, skips) (20, 0) and (0, 20),
         20 launches of each kernel a run; `_device_update`'s device ms
@@ -189,7 +194,26 @@ Phases, each of which raises on failure (exit code 1):
         scaling/census_n262144.json at every checkpoint, the counts that
         differ at all listed;
      e. `scripts.scaling_model` on the repo's artifacts (TORCH_DIST_BENCH*.json,
-        scaling_torch/), its tables printed.
+        scaling_torch/), its tables printed;
+ 14. graphs: whether torch captures `torch.cond` as a conditional node
+     (if not, the error, and the graphed migration takes the category
+     sort); at 262,144 grid init, each graphed entry point against the
+     same function run eagerly on the same input (`.eager`, or the timed
+     phases' bodies run eagerly), bit for bit after each of 3 calls, with
+     sync debug mode "error" around the graphed calls: `make_step`,
+     `make_impulse`, and on one rank the slab step (elided and through the
+     whole machinery, a click at the second), timed stages and 3-step run
+     and the (1, 1, 1) brick's; the capture's seconds and the launches of
+     one replay (one of each kernel a step, none for the impulse);
+     `Simulator.simulate_and_time` graphed and eager in turns (graphs,
+     eager, eager, graphs) of 100 steps, its Times tables, timesteps/s,
+     busy share (profiler, 10 steps) and equal end states; the sharded
+     bench on one rank (`DistSimulator` right-sized, a warm and a timed
+     100-step `run`) elided and through the whole machinery at 262,144
+     and 1,048,576, graphed and eager in turns, timesteps/s, busy share
+     (profiler, a 10-step run), equal end states; the (1, 1, 1) `DistSimulator`'s timed step (the
+     CLI's `--mesh 1x1x1`) likewise over 20 steps a run, its halo a whole
+     block.
 The probes' bounds are their FMA (2 flops) or operation counts at 67
 TFLOP/s. Each path's kernel launch counts are set to 0 just before it and
 read just after. A wrapper counts where it launches its kernel; inside a CUDA graph
@@ -199,13 +223,17 @@ per-kernel results (the main path's launches, the launches in one replay
 of the 100-step chain, and for rank, density and force the numbers at step
 20 with each state's under "by_step", the sharded and brick paths'
 launches and phase 13's under "dist_launches", bench_torch's timed run's under
-"bench_launches") and, last, one JSON line {"ok":
+"bench_launches", one replay of each graphed entry point of phase 14 under
+"graph_launches") and, last, one JSON line {"ok":
 true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
+import importlib
 import json
 import math
 import os
@@ -248,6 +276,10 @@ SKIP_STEPS = 20  # phase 13a and 13b: steps with the skip and with the sort
 CHECKPOINT_STEPS = 10  # phase 13c: steps before and after the checkpoint
 CENSUS_STEPS, CENSUS_CHUNK = 100, 10  # phase 13d
 SKIP_KICK = (0.05, 2.0)  # phase 13b: rows this far below a slab face get this vz
+GRAPH_STEPS = 3  # phase 14: replays held bit for bit against the eager calls
+GRAPH_TIERS = (262_144, 1_048_576)  # phase 14: the sharded bench's tiers
+MESH_TIMED_STEPS = 20  # phase 14: timed steps a run of the (1, 1, 1) DistSimulator
+GRAPH_CLICK = (400, 300)  # phase 14: the click of the graphed impulse and steps
 KERNEL_STATES = (0, 20, 100)  # steps of 262,144 grid init at which phase 3 checks and times
 TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
 # H100 SXM peaks (NVIDIA's data sheet) for the bounds
@@ -683,10 +715,13 @@ def hold_kernels_on_rows(key, x, y, z, vx, vy, vz, cfg) -> tuple[float, float]:
 
 def device_ops_per_step(run, start, steps: int) -> float:
     """Operations the card ran a step (kernels, copies and fills), counted
-    by torch.profiler over one call `run(start)` of `steps` steps."""
+    by torch.profiler over one call `run(start)` of `steps` steps, after a
+    first call (the capture of a graphed run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run(start)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(start)
         torch.cuda.synchronize()
@@ -805,6 +840,7 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
             run = sharded.make_sharded_run(cfg, dcfg, comm, CHAIN_STEPS)
             start = sharded.distribute_state(whole, cfg, dcfg, comm)
             state = start
+            step(start)  # the capture
             for fn in kernels:
                 fn.launches = 0
             for k in range(DIST_STEPS):
@@ -831,7 +867,7 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
                   f"max|dpos| {dpos:.3e}), counters clean, {rows} rows, launches "
                   f"a step {per_step[label]}, {ops[label]:.1f} operations a step on the card "
                   f"(profiler); {rates[label]:.3f} timesteps/s "
-                  f"({CHAIN_STEPS} eager steps, {wall * 1e3:.3f} ms) beside simulate_and_time "
+                  f"({CHAIN_STEPS} steps in one replay, {wall * 1e3:.3f} ms) beside simulate_and_time "
                   f"{timed_rate:.3f} (phase 5) and the chained graph {chain_rate:.3f} (phase 8); "
                   f"{card}")
         finally:
@@ -999,7 +1035,6 @@ def brick_phase(card: str, kernels, reference, timed_rate: float, slab: dict, de
     """Phase 11 (see the module docstring). `reference` is the state after
     20 `step_kernels` steps from grid init, `slab` phase 10's one-rank
     rates and operations. Returns the brick path's launches by kernel."""
-    import contextlib
     import io
 
     from tpusph_torch import cli
@@ -1025,6 +1060,7 @@ def brick_phase(card: str, kernels, reference, timed_rate: float, slab: dict, de
     run = mesh3d.make_mesh3d_run(cfg, mcfg, comm, CHAIN_STEPS)
     start = mesh3d.distribute_state_3d(init_state(cfg, device="cpu"), cfg, mcfg, comm)
     state = start
+    step(start)  # the capture
     for fn in kernels:
         fn.launches = 0
     for k in range(DIST_STEPS):
@@ -1050,7 +1086,7 @@ def brick_phase(card: str, kernels, reference, timed_rate: float, slab: dict, de
           f"(density rtol 1e-4, positions atol 1e-4, multisets; max|dpos| "
           f"{dpos:.3e}), counters clean, {rows} rows (halo a direction "
           f"{halo} by axis), launches a step {per_step}, {ops:.1f} operations a "
-          f"step on the card (profiler); {rate:.3f} timesteps/s ({CHAIN_STEPS} eager steps, "
+          f"step on the card (profiler); {rate:.3f} timesteps/s ({CHAIN_STEPS} steps in one replay, "
           f"{wall * 1e3:.3f} ms) beside the z-slab one rank elided {slab['rates']['elided']:.3f} "
           f"({slab['ops']['elided']:.1f} operations a step) and through the whole machinery "
           f"{slab['rates']['full machinery']:.3f} ({slab['ops']['full machinery']:.1f}); {card}")
@@ -1175,6 +1211,8 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
             return s
 
         ref = sim()
+        ref.simulate()  # the step's capture (its warm-up launches too)
+        ref.setup()
         zero()
         ref.simulate()
         per_step = counts()
@@ -1337,7 +1375,6 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
 def bench_phase(card: str, kernels, chain_rate: float, dev) -> dict:
     """Phase 12 (see the module docstring). Returns each kernel's launches
     in bench_torch's timed run."""
-    import contextlib
     import io
 
     from tpusph_torch import graft_entry
@@ -1561,7 +1598,9 @@ def slice_phase(card: str, kernels, dev) -> dict:
         require(sharded._aligned(cfg, dcfg) and not sharded._elide_single(dcfg),
                 "13a: the one-rank line must splice")
         start = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
-        step = sharded.make_sharded_step(cfg, dcfg, comm)
+        # the eager step, whose skip is the host read that a line of several
+        # ranks takes (phase 14 holds the graphed step)
+        step = sharded.make_sharded_step(cfg, dcfg, comm).eager
         step(start)
         runs = _skip_runs(step, start, kernels, SKIP_STEPS)
         for mode in runs:
@@ -1683,6 +1722,277 @@ def slice_phase(card: str, kernels, dev) -> dict:
     require(proj["tables"], "13e: no projection table")
     print(f"13e. scaling_model on the repo's artifacts (link assumed, not measured); {card}")
     return launches
+
+
+class EagerLoop:
+    """A `GraphedLoop`'s body run eagerly on the card, with the loop's
+    interface (`after=` included): the eager path of a graphed phase."""
+
+    def __init__(self, loop, after=None):
+        self.fn, self.after = loop.fn, after
+        self.inputs = self.outputs = None
+
+    def __call__(self, inputs=None):
+        if self.after is not None:
+            inputs = [*self.after.inputs, *self.after.outputs]
+        self.inputs, self.outputs = inputs, self.fn(list(inputs))
+        return self.outputs
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Sync debug mode "error" inside the block: a synchronising call raises."""
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+
+
+def _as_list(state, aux) -> list:
+    """A FluidState or DistState and its counters as one list to compare."""
+    fields = list(state) if hasattr(state, "pid") else [
+        getattr(state, f) for f in ("position", "velocity", "force", "density", "pressure",
+                                    "valid")]
+    return fields + [int(a) for a in aux]
+
+
+def _bit_equal(a: list, b: list) -> bool:
+    return all(torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
+
+
+def graph_phase(card: str, kernels, timed_rate: float, dev) -> dict:
+    """Phase 14 (see the module docstring). Returns each kernel's launches
+    in one replay of each graphed entry point."""
+    from tpusph_torch.bench.times import Times, format_times
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.core.init import init_state
+    from tpusph_torch.dist import mesh3d, sharded
+    from tpusph_torch.dist.comm import BrickComm, SlabComm
+    from tpusph_torch.dist.simulator import DistSimulator
+    from tpusph_torch.engine import graphs
+    from tpusph_torch.engine.simulator import Simulator
+    from tpusph_torch.engine.step import make_step
+    from tpusph_torch.interact.impulse import make_impulse
+
+    names = ("rank", "density", "force")
+    cfg = tuned_config(N_MAIN)
+    if graphs.CONDITIONAL_NODES:
+        why = "torch.cond captures as a conditional node: the skip branches on the card"
+    else:
+        try:  # only to print why: the rule is graphs.CONDITIONAL_NODES
+            importlib.import_module("torch._higher_order_ops.cudagraph_conditional_nodes")
+            why = "importable, yet not found by find_spec"
+        except ImportError as e:
+            why = (f"{type(e).__name__}: {e}; a graphed migration takes the category sort "
+                   f"every step")
+    print(f"14. graphs, torch {torch.__version__}: conditional nodes {graphs.CONDITIONAL_NODES} "
+          f"({why})")
+    per_replay = {n: {} for n in names}
+
+    def counts():
+        return {n: fn.launches for n, fn in zip(names, kernels)}
+
+    def hold_chain(label, graphed, eager, start, expect=1):
+        """`graphed` and `eager` (state -> (state, aux)) GRAPH_STEPS times
+        from `start`, bit for bit after every call; the first graphed call
+        (the capture) timed, launches of the second counted and held to
+        `expect` a kernel."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphed(start)  # the warm-up may make constants (a copy from the host)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        a = b = start
+        for k in range(GRAPH_STEPS):
+            before = counts()
+            with sync_errors():
+                a, aux_a = graphed(a)
+            if k == 0:
+                for n, c in counts().items():
+                    per_replay[n][label] = c - before[n]
+            b, aux_b = eager(b)
+            require(_bit_equal(_as_list(a, aux_a), _as_list(b, aux_b)),
+                    f"14 {label}: replay {k} differs from the eager call")
+        launches = {n: per_replay[n][label] for n in names}
+        require(all(c == expect for c in launches.values()),
+                f"14 {label}: launches a replay {launches}, not {expect} a kernel")
+        print(f"14 {label}: {GRAPH_STEPS} replays equal the eager calls bit for bit (sync debug "
+              f"mode error around them); capture and first replay {capture_s:.3f} s; launches "
+              f"a replay {launches}")
+
+    # a. the single-card engine: make_step, make_impulse, the timed phases
+    start = init_state(cfg, device=dev)
+    step = make_step(cfg, "kernels", dev)
+    hold_chain("make_step", step, step.eager, start)
+    kick = make_impulse(cfg)
+    hold_chain("make_impulse", lambda s: (kick(s, s.position, GRAPH_CLICK), ()),
+               lambda s: (kick.eager(s, s.position, GRAPH_CLICK), ()), start, expect=0)
+    sims, rates, busy = {}, {"graphs": [], "eager": []}, {}
+    for mode in ("graphs", "eager"):
+        sim = Simulator(cfg, device=dev)
+        sim.setup(start)
+        if mode == "eager":
+            build, update = sim._timed_phases()
+            eager_build = EagerLoop(build)
+            sim._timed = (eager_build, EagerLoop(update, after=eager_build))
+        sim.simulate_and_time(Times())  # the capture, outside the turns
+        sims[mode] = sim
+    for mode in ("graphs", "eager", "eager", "graphs"):
+        sim = sims[mode]
+        sim.setup(start)
+        times = Times()
+        for _ in range(TIMED_STEPS):
+            sim.simulate_and_time(times)
+        rates[mode].append(times.iters / (times.build_grid + times.sph_update + times.memcpy))
+        if mode not in busy:
+            print(f"14 timed, {mode}:\n{format_times(times)}")
+            busy[mode] = bench_torch._busy_share(
+                lambda: [sim.simulate_and_time(Times()) for _ in range(PROFILED_STEPS)], dev)
+    require(_bit_equal(_as_list(sims["graphs"].state, ()), _as_list(sims["eager"].state, ())),
+            "14 timed: the graphed phases end apart from the eager ones")
+    print(f"14 timed (Simulator.simulate_and_time, two replays a step), {N_MAIN} grid init, "
+          f"{TIMED_STEPS} steps a run in turns graphs, eager, eager, graphs: timesteps/s "
+          f"{rates['graphs'][0]:.3f} / {rates['eager'][0]:.3f} / {rates['eager'][1]:.3f} / "
+          f"{rates['graphs'][1]:.3f} (phase 5: {timed_rate:.3f}); busy share graphs "
+          f"{busy['graphs']} eager {busy['eager']}; the states equal bit for bit; {card}")
+
+    # b. the sharded engines on one rank: step (a click at the second),
+    # timed stages and run, against their eager paths
+    whole = init_state(cfg, device="cpu")
+    for label, full in (("slab elided", "0"), ("slab whole machinery", "1"), ("brick", "1")):
+        os.environ["TPUSPH_DIST_FULL_MACHINERY"] = full
+        try:
+            if label == "brick":
+                comm = BrickComm(dev)
+                halo = (cfg.padded_num_particles,) * 3  # phase 11a's capacities
+                dcfg = mesh3d.Mesh3DConfig((1, 1, 1), cfg.padded_num_particles, halo,
+                                           (DIST_MIGRATION,) * 3)
+                make_step_, make_timed, make_run = (mesh3d.make_mesh3d_step,
+                                                    mesh3d.make_mesh3d_timed,
+                                                    mesh3d.make_mesh3d_run)
+                begin = mesh3d.distribute_state_3d(whole, cfg, dcfg, comm)
+            else:
+                comm = SlabComm(dev)
+                caps = (8, 8) if full == "0" else (DIST_HALO_ONE_CARD, DIST_MIGRATION)
+                dcfg = sharded.DistConfig(1, cfg.padded_num_particles, *caps)
+                make_step_, make_timed, make_run = (sharded.make_sharded_step,
+                                                    sharded.make_sharded_timed,
+                                                    sharded.make_sharded_run)
+                begin = sharded.distribute_state(whole, cfg, dcfg, comm)
+            branches0 = sharded.migration_counts()
+            fn = make_step_(cfg, dcfg, comm)
+            a = b = begin
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(begin)
+            fn(begin, GRAPH_CLICK)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            for k in range(GRAPH_STEPS):
+                click = GRAPH_CLICK if k == 1 else None
+                before = counts()
+                with sync_errors():
+                    a, aux_a = fn(a, click)
+                if k == 0:
+                    for n, c in counts().items():
+                        per_replay[n][f"{label} step"] = c - before[n]
+                        require(c - before[n] == 1, f"14 {label} step: {n} launched "
+                                f"{c - before[n]} times a replay")
+                b, aux_b = fn.eager(b, click)
+                require(_bit_equal(_as_list(a, aux_a), _as_list(b, aux_b)),
+                        f"14 {label} step {k}: the replay differs from the eager step")
+            print(f"14 {label} step: {GRAPH_STEPS} replays (a click at the second) equal the "
+                  f"eager steps bit for bit; both graphs captured in {capture_s:.3f} s; launches "
+                  f"a replay {dict((n, per_replay[n][f'{label} step']) for n in names)}")
+            build, update = make_timed(cfg, dcfg, comm)
+            hold_chain(f"{label} timed", lambda s: update(*build(s)),
+                       lambda s: update.eager(*build.eager(s)), begin)
+            run = make_run(cfg, dcfg, comm, GRAPH_STEPS)
+            hold_chain(f"{label} run({GRAPH_STEPS})", run, run.eager, begin, expect=GRAPH_STEPS)
+            sorts, skips = (b - a for a, b in zip(branches0, sharded.migration_counts()))
+            print(f"14 {label}: migration branches of the graphed and eager calls (sorts, "
+                  f"skips) ({sorts}, {skips})")
+            del comm
+        finally:
+            os.environ.pop("TPUSPH_DIST_FULL_MACHINERY", None)
+
+    # c. the sharded bench on one rank (bench_torch's protocol: right_size,
+    # a warm run, the state set up again, a timed run), graphed and eager
+    # in turns, and the brick grid's timed step (`--mesh 1x1x1`)
+    for n in GRAPH_TIERS:
+        cfg_n = tuned_config(n)
+        host0 = init_state(cfg_n, device="cpu")
+        for label, full in (("elided", "0"), ("whole machinery", "1")):
+            os.environ["TPUSPH_DIST_FULL_MACHINERY"] = full
+            try:
+                sim = DistSimulator(cfg_n, device=dev)
+                sim.setup(host0)
+                sim.right_size(warmup_steps=10)
+                runners = {k: sharded.make_sharded_run(sim.cfg, sim.dcfg, sim.comm, k)
+                           for k in (CHAIN_STEPS, PROFILED_STEPS)}
+                rates, busy, ends = {"graphs": [], "eager": []}, {}, {}
+                for mode in ("graphs", "eager", "eager", "graphs"):
+                    for k, run in runners.items():
+                        sim._runners[k] = run if mode == "graphs" else run.eager
+                    sim.setup(host0)
+                    sim.run(CHAIN_STEPS)  # warm (the capture)
+                    sim.setup(host0)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sim.run(CHAIN_STEPS)
+                    torch.cuda.synchronize()
+                    rates[mode].append(CHAIN_STEPS / (time.perf_counter() - t0))
+                    ends[mode] = list(sim.state)
+                    if mode not in busy:
+                        sim.run(PROFILED_STEPS)  # the capture of the profiled run
+                        busy[mode] = bench_torch._busy_share(lambda: sim.run(PROFILED_STEPS),
+                                                             dev)
+                require(_bit_equal(ends["graphs"], ends["eager"]),
+                        f"14 bench {n} {label}: the graphed run ends apart from the eager one")
+                print(f"14 sharded bench, one rank, {label}, {n} grid init, capacities dev "
+                      f"{sim.dcfg.dev_capacity} halo {sim.dcfg.halo_capacity} migration "
+                      f"{sim.dcfg.migration_capacity}: timesteps/s of {CHAIN_STEPS}-step runs in "
+                      f"turns graphs, eager, eager, graphs {rates['graphs'][0]:.3f} / "
+                      f"{rates['eager'][0]:.3f} / {rates['eager'][1]:.3f} / "
+                      f"{rates['graphs'][1]:.3f}; busy share graphs {busy['graphs']} eager "
+                      f"{busy['eager']}; the runs end equal bit for bit; {card}")
+                del sim
+            finally:
+                os.environ.pop("TPUSPH_DIST_FULL_MACHINERY", None)
+    sims, rates, busy = {}, {"graphs": [], "eager": []}, {}
+    for mode in ("graphs", "eager"):
+        sim = DistSimulator(cfg, mesh_shape=(1, 1, 1), device=dev)
+        # phase 11a's halo, a whole block, so that no step grows and makes
+        # the timed stages again (which would be graphed)
+        sim.dcfg = dataclasses.replace(sim.dcfg, halo_capacity=(cfg.padded_num_particles,) * 3)
+        sim._rebuild_step()
+        sim.setup(whole)
+        if mode == "eager":
+            build, update = mesh3d.make_mesh3d_timed(sim.cfg, sim.dcfg, sim.comm)
+            sim._timed = (build.eager, update.eager)
+        sim.simulate_and_time(Times())  # the capture, outside the turns
+        sims[mode] = sim
+    for mode in ("graphs", "eager", "eager", "graphs"):
+        sim = sims[mode]
+        sim.setup(whole)
+        times = Times()
+        for _ in range(MESH_TIMED_STEPS):
+            sim.simulate_and_time(times)
+        rates[mode].append(times.iters / (times.build_grid + times.sph_update + times.memcpy))
+        if mode not in busy:
+            print(f"14 --mesh 1x1x1 timed, {mode}:\n{format_times(times)}")
+            busy[mode] = bench_torch._busy_share(
+                lambda: [sim.simulate_and_time(Times()) for _ in range(2)], dev)
+    require(_bit_equal(list(sims["graphs"].state), list(sims["eager"].state)),
+            "14 --mesh 1x1x1: the graphed timed steps end apart from the eager ones")
+    print(f"14 DistSimulator (1, 1, 1) timed (the CLI's --mesh 1x1x1), {N_MAIN} grid init, "
+          f"{MESH_TIMED_STEPS} steps a run in turns graphs, eager, eager, graphs: timesteps/s "
+          f"{rates['graphs'][0]:.3f} / {rates['eager'][0]:.3f} / {rates['eager'][1]:.3f} / "
+          f"{rates['graphs'][1]:.3f}; busy share graphs {busy['graphs']} eager {busy['eager']} "
+          f"(the collect by pid included); the states equal bit for bit; {card}")
+    return per_replay
 
 
 def main() -> int:
@@ -2194,6 +2504,7 @@ def main() -> int:
     bench_launches = bench_phase(card, kernels, chain_rate, dev)
     for name, counts in slice_phase(card, kernels, dev).items():
         dist_launches[name].update(counts)
+    graph_launches = graph_phase(card, kernels, timed_rate, dev)
 
     for name, r in results.items():
         r["launches_per_replay"] = replay_launches.get(name, 0)
@@ -2201,6 +2512,8 @@ def main() -> int:
             r["bench_launches"] = bench_launches[name]
         if name in dist_launches:
             r["dist_launches"] = dist_launches[name]
+        if name in graph_launches:
+            r["graph_launches"] = graph_launches[name]
         r.setdefault("baseline_ms", None)
         r.setdefault("library_ms", None)
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
@@ -2213,7 +2526,7 @@ def main() -> int:
                               "sass_instructions_per_round", "sass_loads_per_round",
                               "best_load_bytes_per_clock_per_sm", "rates", "turns",
                               "device_ms", "baseline_device_ms", "dist_launches",
-                              "bench_launches")
+                              "bench_launches", "graph_launches")
             if k in r}}
         for name, r in results.items()
     ]

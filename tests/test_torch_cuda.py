@@ -34,7 +34,11 @@ and `DistSimulator` on one rank as z-slabs and as a (1, 1, 1) brick grid,
 against the same steps on the CPU. `bench_torch`'s gates pass on the card
 and its timed run launches each kernel; `fields_profile`'s stages compose
 to the fields step bit for bit; `build_bench`'s three starts tables agree;
-`graft_entry.entry()`'s step on the card matches the CPU's at 1e-4."""
+`graft_entry.entry()`'s step on the card matches the CPU's at 1e-4. Each
+graphed entry point (`make_step`, `make_impulse`, the one-rank slab and
+brick steps, timed stages and runs) replays a CUDA graph bit for bit
+equal to its eager path, with sync debug mode "error" around the
+replays, and a body that reads the card on the host fails its capture."""
 
 import numpy as np
 import pytest
@@ -696,7 +700,8 @@ def test_sharded_step_on_the_card_matches_the_cpu(dev, full, monkeypatch):
     its combined rows, with dead halo rows when the whole machinery runs)
     against the same steps on the CPU (the plain versions): 5 steps at
     4,096 grid init, positions by pid within 1e-4, counters clean, one
-    launch of each kernel a step."""
+    launch of each kernel a step once the step's graph is captured (its
+    warm-up runs the kernels too)."""
     from tpusph_torch.dist.comm import SlabComm
     from tpusph_torch.dist.sharded import (
         DistConfig,
@@ -715,6 +720,7 @@ def test_sharded_step_on_the_card_matches_the_cpu(dev, full, monkeypatch):
         comm = SlabComm(device)
         state = distribute_state(whole, cfg, dcfg, comm)
         step = make_sharded_step(cfg, dcfg, comm)
+        step(state)  # the capture on the card
         kernels = (qrank.rank_queries, fused.density, fused.force)
         for fn in kernels:
             fn.launches = 0
@@ -842,3 +848,89 @@ def test_graft_entry_step_on_the_card_matches_the_cpu(dev):
     for f in ("position", "velocity", "density"):
         np.testing.assert_allclose(getattr(got, f).cpu().numpy(), getattr(want, f).numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------ the jitted dispatches as graphs
+
+
+def _replays_equal(graphed, eager, start, calls=3):
+    """`graphed` and `eager` (state -> (state, aux)) `calls` times from
+    `start`, after a first graphed call (the capture, whose warm-up may
+    make constants by a copy from the host): the graphed calls (sync debug
+    mode "error" around them) equal the eager ones bit for bit after each
+    call."""
+    graphed(start)
+    a = b = start
+    for _ in range(calls):
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a, aux_a = graphed(a)
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+        b, aux_b = eager(b)
+        for x, y in zip(a if isinstance(a, tuple) else vars(a).values(),
+                        b if isinstance(b, tuple) else vars(b).values()):
+            assert torch.equal(x, y)
+        assert [int(v) for v in aux_a] == [int(v) for v in aux_b]
+
+
+@pytest.mark.parametrize("entry", ["step", "impulse", "slab_step", "slab_timed", "slab_run",
+                                   "brick_step", "brick_timed", "brick_run"])
+def test_graphed_entry_points_replay_their_eager_path(dev, entry, monkeypatch):
+    """On the card at 4,096 grid init, each graphed entry point (`make_step`,
+    `make_impulse`, and on one rank the slab engine's through the whole
+    machinery and the (1, 1, 1) brick's step with a click, timed stages and
+    2-step run) replays a CUDA graph bit for bit equal to its eager path."""
+    from tpusph_torch.dist import mesh3d, sharded
+    from tpusph_torch.dist.comm import BrickComm, SlabComm
+    from tpusph_torch.interact.impulse import make_impulse
+
+    monkeypatch.setenv("TPUSPH_DIST_FULL_MACHINERY", "1")
+    n, click = 4096, (400, 300)
+    cfg = default_config(n, chunk_size=1024)
+    if entry == "step":
+        fn = make_step(cfg, "kernels", dev)
+        _replays_equal(fn, fn.eager, init_state(cfg, device=dev))
+        return
+    if entry == "impulse":
+        fn = make_impulse(cfg)
+        _replays_equal(lambda s: (fn(s, s.position, click), ()),
+                       lambda s: (fn.eager(s, s.position, click), ()),
+                       init_state(cfg, device=dev))
+        return
+    engine, kind = entry.split("_")
+    whole = init_state(cfg, device="cpu")
+    if engine == "slab":
+        comm = SlabComm(dev)
+        dcfg = sharded.DistConfig(1, n, 1024, 256)
+        start = sharded.distribute_state(whole, cfg, dcfg, comm)
+        makers = (sharded.make_sharded_step, sharded.make_sharded_timed, sharded.make_sharded_run)
+    else:
+        comm = BrickComm(dev)
+        dcfg = mesh3d.Mesh3DConfig((1, 1, 1), n, (n,) * 3, (256,) * 3)
+        start = mesh3d.distribute_state_3d(whole, cfg, dcfg, comm)
+        makers = (mesh3d.make_mesh3d_step, mesh3d.make_mesh3d_timed, mesh3d.make_mesh3d_run)
+    if kind == "step":
+        fn = makers[0](cfg, dcfg, comm)
+        _replays_equal(lambda s: fn(s, click), lambda s: fn.eager(s, click), start)
+    elif kind == "timed":
+        build, update = makers[1](cfg, dcfg, comm)
+        _replays_equal(lambda s: update(*build(s)), lambda s: update.eager(*build.eager(s)),
+                       start)
+    else:
+        fn = makers[2](cfg, dcfg, comm, 2)
+        _replays_equal(fn, fn.eager, start)
+
+
+def test_a_host_read_fails_the_capture(dev):
+    """A body that reads the card on the host cannot be captured: the call
+    raises, with no eager fallback."""
+    from tpusph_torch.engine.graphs import GraphedLoop, HostReadError
+
+    def body(inputs):
+        inputs[0].sum().item()
+        return [inputs[0] * 2]
+
+    with pytest.raises(HostReadError):
+        GraphedLoop(body, dev)([torch.ones(4, device=dev)])

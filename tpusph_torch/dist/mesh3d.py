@@ -38,7 +38,9 @@ drop, and a misrouting counter per axis for the one-hop-per-axis
 invariant. Offsets that depend on the data stay 0-d tensors on the device
 (`sharded._take`), so a step reads nothing back. A (1, 1, 1) grid runs the
 whole machinery, every exchange returning zeros: the JAX package elides
-nothing here either.
+nothing here either. On such a grid each step, timed phase and
+production chain is one CUDA-graph replay on a card (`sharded.OneRank`),
+as tpusph jits each as one dispatch; a rank with peers runs them eagerly.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from tpusph_torch.dist.comm import BrickComm
 from tpusph_torch.dist.sharded import (
     DistAux,
     DistState,
+    OneRank,
     _check_device,
     _compact,
     _compute_sorted_fields,
@@ -382,16 +385,37 @@ def _prepare3d(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, backend: str
     return _kernels_for(cfg, comm, backend)
 
 
+def _one_rank3d(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, backend: str) -> OneRank:
+    """The brick engine's per-rank functions on a (1, 1, 1) grid as
+    `sharded.OneRank` graphs. The brick engine has no migration branch, so
+    nothing keys its graphs and no body counts one."""
+    return OneRank(
+        comm, lambda: (),
+        lambda pos, vel, valid, pid, cell, active, with_click, tally: _device_step3d(
+            pos, vel, valid, pid, cell, active, cfg, mcfg, comm, backend,
+            with_click=with_click),
+        lambda *state: _device_build3d(*state, cfg, mcfg, comm),
+        lambda *rows: _device_update3d(*rows[:8], None, False, cfg, mcfg, comm, backend,
+                                       with_click=rows[8]),
+    )
+
+
 def make_mesh3d_step(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
                      backend: str = "kernels"):
     """`step(state, click_px=None, click_active=None) -> (DistState,
-    DistAux)` for this rank's brick on `comm.device`; every rank of the
-    grid calls it once a timestep. `kernels` (also under tpusph's names
-    `auto` and `pallas`) runs the rank, density and force kernels on each
-    rank; `cell_list` the plain-torch tile passes."""
+    DistAux)` for this rank's brick on `comm.device`, tpusph's jitted
+    brick step (`tpusph/dist/mesh3d.py:544-585`); every rank of the grid
+    calls it once a timestep. `kernels` (also under tpusph's names `auto`
+    and `pallas`) runs the rank, density and force kernels on each rank;
+    `cell_list` the plain-torch tile passes.
+
+    On a (1, 1, 1) grid the step is one CUDA-graph replay on a card, one
+    graph without a click and one with one (`sharded.OneRank`); a rank
+    with peers runs the eager step, as `sharded.make_sharded_step` says
+    why. `step.eager` is the eager step of one rank."""
     backend = _prepare3d(cfg, mcfg, comm, backend)
 
-    def step(state: DistState, click_px=None, click_active=None):
+    def eager(state: DistState, click_px=None, click_active=None):
         """click_px: host pixel coordinates, the same on every rank, or
         None; without a click the kick is left out."""
         _check_device(state, comm)
@@ -405,13 +429,17 @@ def make_mesh3d_step(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
         )
         return DistState(x, v, valid, pid), aux
 
+    if comm.size > 1:
+        return eager
+    step = _one_rank3d(cfg, mcfg, comm, backend).step(cfg)
+    step.eager = eager
     return step
 
 
 def make_mesh3d_timed(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
                       backend: str = "kernels"):
     """The brick step in two stages for the timed protocol, as
-    `sharded.make_sharded_timed`:
+    `sharded.make_sharded_timed` (tpusph `dist/mesh3d.py:588-660`):
 
       build(state) -> (sorted rows, halo_ovf, oob, halo_send)
           the staged halo exchange and the sort ("grid construction")
@@ -420,16 +448,19 @@ def make_mesh3d_timed(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
           click, as the reference's simulateAndTime runs the step
 
     The counters each stage returns are already reduced over the ranks.
-    Returns (build, update)."""
+    Returns (build, update): on a (1, 1, 1) grid one CUDA-graph replay each
+    on a card, what `build` returns the graph's own until the next `build`
+    and `update` taking it; a rank with peers runs eager stages.
+    `build.eager` and `update.eager` are the eager stages of one rank."""
     backend = _prepare3d(cfg, mcfg, comm, backend)
 
-    def build(state: DistState):
+    def build_eager(state: DistState):
         _check_device(state, comm)
         *inter, halo_ovf, oob, halo_send = _device_build3d(*state, cfg, mcfg, comm)
         (halo_ovf, oob), (halo_send,) = comm.reduce([halo_ovf, oob], [halo_send])
         return tuple(inter), halo_ovf, oob, halo_send
 
-    def update(inter, halo_ovf, oob, halo_send):
+    def update_eager(inter, halo_ovf, oob, halo_send):
         x, v, valid, pid, (ovf_w, mig_ovf, misrouted, n_valid, mig_send) = _device_update3d(
             *inter, None, False, cfg, mcfg, comm, backend, with_click=False
         )
@@ -443,19 +474,26 @@ def make_mesh3d_timed(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
         )
         return DistState(x, v, valid, pid), aux
 
+    if comm.size > 1:
+        return build_eager, update_eager
+    build, update = _one_rank3d(cfg, mcfg, comm, backend).timed()
+    build.eager, update.eager = build_eager, update_eager
     return build, update
 
 
 def make_mesh3d_run(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, steps: int,
                     backend: str = "kernels"):
     """`run(state) -> (DistState, DistAux)`: `steps` brick timesteps
-    without a click, the production loop, counters folded over the chain
-    as `sharded.make_sharded_run` folds them. A Python loop of eager steps
-    (the JAX package's is a `lax.scan` in one dispatch); nothing is read
-    back between the steps."""
+    without a click, the production loop (tpusph `dist/mesh3d.py:672-730`),
+    counters folded over the chain on the device as
+    `sharded.make_sharded_run` folds them. On a (1, 1, 1) grid the chain is
+    one CUDA-graph replay on a card, as tpusph's is one `lax.scan`
+    dispatch; a rank with peers runs a Python loop of eager steps, which
+    read nothing back between the steps. `run.eager` is that loop on one
+    rank."""
     backend = _prepare3d(cfg, mcfg, comm, backend)
 
-    def run(state: DistState):
+    def eager(state: DistState):
         _check_device(state, comm)
         fields, auxs = tuple(state), []
         for _ in range(steps):
@@ -467,6 +505,10 @@ def make_mesh3d_run(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, steps: 
         aux = DistAux(*auxs[:, :5].sum(dim=0), auxs[-1, 5], *auxs[:, 6:].amax(dim=0))
         return DistState(*fields), aux
 
+    if comm.size > 1:
+        return eager
+    run = _one_rank3d(cfg, mcfg, comm, backend).run(steps)
+    run.eager = eager
     return run
 
 

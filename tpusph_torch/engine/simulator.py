@@ -11,9 +11,13 @@ simulator.h:53-74 and simulator.cu:370-546). Counterpart of
   * move_particles(click)     declared but never defined in the reference
                               (simulator.h:73); implemented as in tpusph
   * dispatch_chunk(S, ...)    S steps in one dispatch (the JAX package's
-    rewind_chunk(handle)      `lax.scan` chunk): one CUDA-graph replay per
-    simulate_chunk(S, ...)    chunk on a card, the same loop eagerly on the
-                              CPU; snapshots come back in one copy
+    rewind_chunk(handle)      `lax.scan` chunk); snapshots come back in one
+    simulate_chunk(S, ...)    copy
+
+What the JAX package jits is one CUDA-graph replay on a card
+(`engine/graphs.py`): the step and the impulse (`make_step`,
+`make_impulse`), each timed phase, each chunk per (S, pack). On the CPU
+the same bodies run eagerly under the capture guard.
 
 State stays on the device across steps. Each timed phase ends in a
 synchronize of the compute stream, so it measures device time as the
@@ -43,8 +47,10 @@ from tpusph_torch.core.config import SimConfig
 from tpusph_torch.core.init import init_state
 from tpusph_torch.core.state import FIELDS, FluidState
 from tpusph_torch.engine.graphs import GraphedLoop
+from tpusph_torch.neighbors.cell_list import CellList
 from tpusph_torch.engine.step import (
     BACKENDS,
+    StepAux,
     build_phase,
     make_step,
     resolve_backend,
@@ -214,8 +220,12 @@ class Simulator:
         self._build_fns()
 
     def _build_fns(self) -> None:
+        """Make the step, the impulse, the timed phases and the chunks
+        again for the current cfg: their graphs are dropped and captured
+        anew at their next call."""
         self._step = make_step(self.cfg, self.backend, self.device)
         self._impulse = make_impulse(self.cfg)
+        self._timed: tuple[GraphedLoop, GraphedLoop] | None = None
         self._chunk_cache: dict = {}
 
     def setup(self, state: FluidState | None = None) -> None:
@@ -236,8 +246,8 @@ class Simulator:
             torch.cuda.current_stream(self.device).synchronize()
 
     def _grow_capacity(self) -> None:
-        """Double the tile passes' candidate capacity, rebuild the step and
-        drop the captured chunks. The JAX package also doubles its window
+        """Double the tile passes' candidate capacity and make the step,
+        the timed phases and the chunks again (`_build_fns`). The JAX package also doubles its window
         and `pallas_*` capacities, which size its Pallas window prep; the
         port's kernels have none."""
         self.cfg = dataclasses.replace(
@@ -265,47 +275,69 @@ class Simulator:
         self.last_aux = aux
         self._position_host = None
 
+    def _timed_phases(self) -> tuple[GraphedLoop, GraphedLoop]:
+        """(build, update), the timed step's two phases as tpusph jits them
+        (`tpusph/engine/simulator.py:140-141`): `build(state fields) ->
+        CellList fields` and `update() -> [*state fields, oob, overflow]`,
+        the second reading the first's inputs and outputs in place. One
+        CUDA-graph replay each on a card (`engine/graphs.py`)."""
+        cfg, tiles = self.cfg, self.backend == "cell_list"
+        update_fn = update_phase if tiles else update_phase_kernels
+
+        def build_body(fields: list) -> list:
+            return list(build_phase(FluidState(*fields), cfg, histogram=tiles))
+
+        def update_body(inputs: list) -> list:
+            fields, cl = inputs[: len(FIELDS)], CellList(*inputs[len(FIELDS):])
+            new, aux = update_fn(FluidState(*fields), cl, cfg)
+            return [*(getattr(new, f) for f in FIELDS), *aux]
+
+        build = GraphedLoop(build_body, self.device, clone=False)
+        return build, GraphedLoop(update_body, self.device, after=build)
+
     def simulate_and_time(self, times: Times) -> None:
         """One timed timestep with the reference's three phases (cu:499-546):
-        grid build, SPH update, copy of the positions to the host. The copy
-        is double-buffered as in tpusph: the phase waits for the previous
-        step's copy, which overlapped this step's build and update, and
-        starts this step's copy. A step that overflowed is replayed, untimed
-        seconds rolled back, with doubled capacity; `iters` counts only
-        steps that stood."""
+        grid build, SPH update (one replay each on a card, `_timed_phases`),
+        copy of the positions to the host. The copy is double-buffered as in
+        tpusph: the phase waits for the previous step's copy, which
+        overlapped this step's build and update, and starts this step's
+        copy. A step that overflowed is replayed, untimed seconds rolled
+        back, with doubled capacity and its phases captured again; `iters`
+        counts only steps that stood."""
         assert self.state is not None, "call setup() first"
         if self.backend not in ("kernels", "cell_list"):
             raise ValueError("timed mode needs the 'kernels' or 'cell_list' backend")
-        cfg = self.cfg
-        tiles = self.backend == "cell_list"
+        if self._timed is None:
+            self._timed = self._timed_phases()
+        build, update = self._timed
         build0, update0, memcpy0 = times.build_grid, times.sph_update, times.memcpy
 
         t0 = time.perf_counter()
-        cl = build_phase(self.state, cfg, histogram=tiles)
+        build([getattr(self.state, f) for f in FIELDS])
         self._sync()
         t1 = time.perf_counter()
         times.build_grid += t1 - t0
 
-        update = update_phase if tiles else update_phase_kernels
-        new_state, aux = update(self.state, cl, cfg)
+        *fields, oob, ovf = update()
         self._sync()
         t2 = time.perf_counter()
         times.sph_update += t2 - t1
 
-        if int(aux.window_overflow) > 0:
+        if int(ovf) > 0:
             times.build_grid, times.sph_update, times.memcpy = build0, update0, memcpy0
             self._grow_capacity()
             self.simulate_and_time(times)
             return
 
+        new_state = FluidState(*fields)
         if self._pending_fetch is not None:
             self._position_host = self._pending_fetch.wait()
-        self._pending_fetch = AsyncPositionFetch(new_state.position, cfg.num_particles)
+        self._pending_fetch = AsyncPositionFetch(new_state.position, self.cfg.num_particles)
         t3 = time.perf_counter()
         times.memcpy += t3 - t2
 
         self.state = new_state
-        self.last_aux = aux
+        self.last_aux = StepAux(oob_count=oob, window_overflow=ovf)
         times.iters += 1
 
     # ------------------------------------------------------ chunked stepping

@@ -18,8 +18,9 @@ three kernels and integrates per axis with no (N, 3) gather or scatter,
 and returns the state in sorted order. `make_fields_chain` chains it as
 bench.py's `lax.scan` does, as one CUDA-graph replay on a card.
 
-The steps are functional: they return a new state and leave their input
-as it was.
+`make_step` is the entry point, tpusph's jitted step: one CUDA-graph
+replay a call on a card (`engine/graphs.py`). The steps are functional:
+they return a new state and leave their input as it was.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from tpusph_torch.core.config import SimConfig
-from tpusph_torch.core.state import FluidState
+from tpusph_torch.core.state import FIELDS, FluidState
 from tpusph_torch.engine.graphs import GraphedLoop
 from tpusph_torch.kernels.fused import column_offsets, density, force
 from tpusph_torch.neighbors.allpairs import density_allpairs, forces_allpairs
@@ -361,8 +362,13 @@ def resolve_backend(name: str) -> str:
 
 
 def make_step(cfg: SimConfig, backend: str = "kernels", device="cuda"):
-    """`state -> (state, aux)` for states on `device`. On a CUDA device the
-    kernels are built here, so the first step does not pay for the build."""
+    """`state -> (state, aux)` for states on `device`, the counterpart of
+    tpusph's jitted step (`tpusph/engine/step.py:380`). On a card the step
+    is one CUDA-graph replay per backend (`engine/graphs.py`), captured at
+    the first call after the kernels are built here; every backend
+    captures (`allpairs` too: its row chunks read nothing from the host).
+    On the CPU the same body runs under the capture guard. `step.eager`
+    is the same step as a stream of eager operations."""
     cfg.validate()
     fn = BACKENDS[resolve_backend(backend)]
     device = torch.device(device)
@@ -371,9 +377,24 @@ def make_step(cfg: SimConfig, backend: str = "kernels", device="cuda"):
 
         cuda_build.library()
 
-    def step(state: FluidState):
+    def body(fields: list) -> list:
+        new, aux = fn(FluidState(*fields), cfg)
+        return [*(getattr(new, f) for f in FIELDS), *aux]
+
+    loop = GraphedLoop(body, device)
+
+    def check(state: FluidState):
         if state.device.type != device.type:
             raise ValueError(f"state is on {state.device}, step was made for {device}")
+
+    def step(state: FluidState):
+        check(state)
+        *fields, oob, ovf = loop([getattr(state, f) for f in FIELDS])
+        return FluidState(*fields), StepAux(oob_count=oob, window_overflow=ovf)
+
+    def eager(state: FluidState):
+        check(state)
         return fn(state, cfg)
 
+    step.eager = eager
     return step

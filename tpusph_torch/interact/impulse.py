@@ -44,6 +44,7 @@ from tpusph_torch.core.config import (
     f32,
 )
 from tpusph_torch.core.state import FluidState
+from tpusph_torch.engine.graphs import GraphedLoop
 from tpusph_torch.neighbors.grid import h_tensor
 
 
@@ -146,10 +147,29 @@ def apply_click_impulse(state: FluidState, pre_step_position, click_px, cfg: Sim
 
 
 def make_impulse(cfg: SimConfig):
-    """`(state, pre_pos, click_px) -> state`: the pixel → cell conversion on
-    the host, the kick on the state's device."""
+    """`(state, pre_pos, click_px) -> state`, the counterpart of tpusph's
+    jitted impulse (`tpusph/interact/impulse.py:152`): the pixel → cell
+    conversion on the host, then the kick on the state's device, one
+    CUDA-graph replay on a card (`apply_kick` under the capture guard on
+    the CPU), the click cell and its gain going in as int32 tensors as
+    tpusph traces its int32[2]. `impulse.eager` is `apply_click_impulse`."""
+    one = torch.ones((), dtype=torch.int32)
+    loops: dict = {}  # device → GraphedLoop
+
+    def body(inputs: list) -> list:
+        velocity, pre_pos, valid, cell, gain = inputs
+        return [apply_kick(velocity, pre_pos, valid, cell, gain, cfg)]
 
     def impulse(state: FluidState, pre_pos, click_px) -> FluidState:
+        px, py = (int(v) for v in np.asarray(click_px))
+        cell = torch.tensor(click_cell_from_px(px, py, cfg), dtype=torch.int32)
+        if state.device not in loops:
+            loops[state.device] = GraphedLoop(body, state.device)
+        (velocity,) = loops[state.device]([state.velocity, pre_pos, state.valid, cell, one])
+        return dataclasses.replace(state, velocity=velocity)
+
+    def eager(state: FluidState, pre_pos, click_px) -> FluidState:
         return apply_click_impulse(state, pre_pos, click_px, cfg)
 
+    impulse.eager = eager
     return impulse

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from tpusph_torch.core.config import SimConfig, f32
-from tpusph_torch.kernels.launch import check_tensor, on_cpu, stream_of
+from tpusph_torch.kernels.launch import check_tensor, on_cpu, plain_version, stream_of
 
 # The density kernel's shape (csrc/sph.cu kTile, kChunk, kStageMin,
 # kPieces): blocks of 128 targets; stages of 1024 row slots in at most 16
@@ -198,7 +198,8 @@ def density_plain(x, y, z, key_sorted, starts, cfg: SimConfig) -> torch.Tensor:
 def _launch_density(entry, x, y, z, key_sorted, starts, cfg: SimConfig):
     dev, n = _check_sorted_inputs(dict(x=x, y=y, z=z), key_sorted, starts, cfg)
     if on_cpu(dev):
-        return density_plain(x, y, z, key_sorted, starts, cfg)
+        with plain_version():
+            return density_plain(x, y, z, key_sorted, starts, cfg)
     from tpusph_torch.utils import cuda_build
 
     rho = torch.empty_like(x)
@@ -275,7 +276,8 @@ def force_plain(
 def _launch_force(entry, fields, key_sorted, starts, cfg: SimConfig):
     dev, n = _check_sorted_inputs(fields, key_sorted, starts, cfg)
     if on_cpu(dev):
-        return force_plain(*fields.values(), key_sorted, starts, cfg)
+        with plain_version():
+            return force_plain(*fields.values(), key_sorted, starts, cfg)
     from tpusph_torch.utils import cuda_build
 
     f = fields["x"].new_empty((3, n))

@@ -1,8 +1,30 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the mark of a
+kernel's plain version at work."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+_plain_depth = 0  # plain versions running now (they may nest)
+
+
+@contextlib.contextmanager
+def plain_version():
+    """Around a kernel's plain version on the CPU. It stands for one launch,
+    so the capture guard (`engine/graphs.py`) lets its own host reads
+    through; the body around it stays guarded."""
+    global _plain_depth
+    _plain_depth += 1
+    try:
+        yield
+    finally:
+        _plain_depth -= 1
+
+
+def in_plain_version() -> bool:
+    return _plain_depth > 0
 
 
 def on_cpu(device: torch.device) -> bool:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from tpusph_torch.kernels.launch import check_tensor, on_cpu, stream_of
+from tpusph_torch.kernels.launch import check_tensor, on_cpu, plain_version, stream_of
 
 # The kernel's shape, the constants of qrank.cu: a block owns BLOCK_QUERIES
 # consecutive queries (kRankQueries) and stages a span of at most STAGE keys
@@ -72,7 +72,8 @@ def _launch(entry: str, key_sorted: torch.Tensor, queries: torch.Tensor, num_cel
     check_tensor("key_sorted", key_sorted, torch.int32, dev)
     check_tensor("queries", queries, torch.int32, dev)
     if on_cpu(dev):
-        return rank_queries_plain(key_sorted, queries, num_cells)
+        with plain_version():
+            return rank_queries_plain(key_sorted, queries, num_cells)
     from tpusph_torch.utils import cuda_build
 
     lib = cuda_build.library()

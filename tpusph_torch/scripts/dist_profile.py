@@ -7,15 +7,18 @@ by default, backend `kernels`, in both forms of `dist/sharded.py`: elided
 (what a line of one rank runs) and with TPUSPH_DIST_FULL_MACHINERY=1 (dead
 halo buffers of `halo_capacity` rows a side, default 16,384, the splice
 and the migration sort: what a middle rank pays, less the exchange). For
-each: timesteps/s of STEPS eager steps (`make_sharded_run`, wall time up
-to a synchronize, the median of 5 runs from grid init), then one profiled
-run: the device's busy share, device ms a step by kernel and host ms a
-step by operator. Prints the card's name and power limit with every
-figure.
+each, and for each form of the run (`make_sharded_run`: one CUDA-graph
+replay of STEPS steps on a line of one rank, and `run.eager`, the Python
+loop of eager steps that a rank with peers runs): timesteps/s (wall time
+up to a synchronize, the median of 5 runs from grid init), then one
+profiled run: the device's busy share, device ms a step by kernel and
+host ms a step by operator. Prints the card's name and power limit with
+every figure.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import statistics
 import sys
@@ -45,10 +48,12 @@ def main(argv=None) -> dict:
     comm = SlabComm(dev)
     whole = init_state(cfg, device="cpu")
     out = {}
-    for label, full in (("elided", "0"), ("full machinery", "1")):
+    for (label, full), form in itertools.product((("elided", "0"), ("full machinery", "1")),
+                                                 ("graphs", "eager")):
         os.environ["TPUSPH_DIST_FULL_MACHINERY"] = full
         dcfg = DistConfig(1, cfg.padded_num_particles, halo, MIGRATION_CAPACITY)
         run = make_sharded_run(cfg, dcfg, comm, STEPS)
+        run = run if form == "graphs" else run.eager
         start = distribute_state(whole, cfg, dcfg, comm)
         run(start)  # warm
         walls = []
@@ -70,9 +75,10 @@ def main(argv=None) -> dict:
         host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                       key=lambda e: -e.self_cpu_time_total)
         device_ms = sum(e.self_device_time_total for e in device) / 1e3
-        out[label] = dict(timesteps_per_s=STEPS / wall, device_ms_per_step=device_ms / STEPS)
-        print(f"sharded one rank, {label}, N={n}: {STEPS / wall:.3f} timesteps/s "
-              f"({wall / STEPS * 1e3:.4f} ms a step, median of 5 runs of {STEPS} eager steps); "
+        out[f"{label}, {form}"] = dict(timesteps_per_s=STEPS / wall,
+                                       device_ms_per_step=device_ms / STEPS)
+        print(f"sharded one rank, {label}, {form}, N={n}: {STEPS / wall:.3f} timesteps/s "
+              f"({wall / STEPS * 1e3:.4f} ms a step, median of 5 runs of {STEPS} steps); "
               f"profiled run {prof_wall * 1e3:.3f} ms, device {device_ms:.3f} ms, busy "
               f"{device_ms / 1e3 / prof_wall:.3f}; {card}")
         print("  device ms a step by kernel: " + "; ".join(

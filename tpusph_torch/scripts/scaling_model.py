@@ -12,17 +12,14 @@ It reads files only (runs on the CPU) and keeps tpusph's model:
 
   * t_tier(N): the one-rank ELIDED sharded bench
     (`TORCH_DIST_BENCH[_n{N}].json`, `bench_torch.py`'s sharded mode): the
-    same eager engine as the machinery runs, with the machinery left out.
-    tpusph takes its single-chip jit-chained bench here, and its sharded
-    bench is jit-chained too, so full − tier is the machinery alone. The
-    port's single-card bench is a CUDA-graph replay while its sharded
-    runs are eager, so full − chained would charge the eager loop's host
-    overhead to the machinery. The chained rate (`bench_torch.py`'s line
-    at N, kept as `scaling_torch/TORCH_BENCH_n{N}.json`) is printed beside
-    the tables as what one card gives today. Caveat: the one-rank rates are
-    host-bound (nearly flat in N; their busy share is printed), so
-    t_tier · λ / D assumes that a loop bound by its launches shrinks with
-    its rows, which it does not.
+    same engine as the machinery runs, with the machinery left out, its
+    run one CUDA-graph replay as tpusph's tiers were scan-chained
+    dispatches, so full − tier is the machinery alone. The chained
+    single-card rate (`bench_torch.py`'s line at N, kept as
+    `scaling_torch/TORCH_BENCH_n{N}.json`) is printed beside the tables as
+    what one card gives today. Each rate's busy share is printed: where it
+    is low the run is bound by the host, and t_tier · λ / D, which
+    assumes that a rank's time shrinks with its rows, holds less.
   * λ(N, D), the halo and migration rows and f_mig (the share of
     checkpoints where some rank has slab-crossers): the port's census
     (`slab_census.py`, `scaling_torch/census_n{N}.json`), trajectory
@@ -208,7 +205,7 @@ def main(argv=None, root: str = REPO, census_dir: str = SCALING,
     print("one card today, the chained single-card bench (CUDA graph): "
           + (", ".join(f"{n}: {v:.3f} timesteps/s" for n, v in chained.items())
              or "not recorded"))
-    print("t_tier: the one-rank elided sharded bench (eager), "
+    print("t_tier: the one-rank elided sharded bench (one graph replay a run), "
           + ", ".join(f"{n}: {t:.3f} ms ({1000 / t:.3f} timesteps/s, device busy "
                       f"{'not measured' if busy[n] is None else busy[n]})"
                       for n, t in tier_ms.items()))
@@ -232,7 +229,8 @@ def main(argv=None, root: str = REPO, census_dir: str = SCALING,
     out = {
         "model": "t = t_tier(N)*lambda/D + mig_frac-weighted tax(n_dev*margin) + t_link",
         "cards": cards,
-        "tier": "one-rank elided sharded bench, eager (TORCH_DIST_BENCH[_n{N}].json)",
+        "tier": "one-rank elided sharded bench, one graph replay a run "
+                "(TORCH_DIST_BENCH[_n{N}].json)",
         "tier_ms": {str(n): round(t, 4) for n, t in tier_ms.items()},
         "tier_device_busy": {str(n): b for n, b in busy.items()},
         "chained_single_card_timesteps_per_s": {str(n): v for n, v in chained.items()},
