@@ -324,14 +324,16 @@ def main_dist() -> None:
     not the asked rank count exits 2.
 
     Capacities are measured: `right_size(warmup_steps=10)` unless
-    TPUSPH_BENCH_DIST_SLACK pins a slack. One warm `run(steps)` (on one
-    rank it captures the chain's CUDA graph), the state set up again, one
-    timed `run(steps)` up to a synchronize: on one rank one replay, as
-    tpusph's chain is one dispatch; with peers a Python loop of eager
-    steps, host-bound. On a card a profiled run of PROFILED_DIST_STEPS more
-    (made and warmed first) gives the device's busy share. The artifact
-    records whether the run replayed a graph and the migration branches
-    (category sorts, skips) that the timed run took. Rank 0 prints the
+    TPUSPH_BENCH_DIST_SLACK pins a slack. One warm `run(steps)` (it
+    captures the run's CUDA graphs), the state set up again, one timed
+    `run(steps)` up to a synchronize: on one rank one replay, as tpusph's
+    chain is one dispatch; with peers one step's graph segments replayed
+    `steps` times, the transports between them (`sharded.RankGraphs.run`).
+    On a card a profiled run of PROFILED_DIST_STEPS more (made and warmed
+    first) gives the device's busy share. The artifact records that the
+    run is the graphed one (on the CPU its bodies under the capture guard)
+    and the migration branches (category sorts, skips) that the timed run
+    took. Rank 0 prints the
     line and writes it with its capacities to
     TORCH_DIST_BENCH[_FULL[_MIGSORT]][_n{N}].json in
     TPUSPH_BENCH_ARTIFACT_DIR (the repo root by default): `_FULL` with
@@ -403,7 +405,7 @@ def main_dist() -> None:
             migration_capacity=sim.dcfg.migration_capacity, right_sized=right_sized,
             slack=float(slack_env) if slack_env else None, full_machinery=full,
             force_migsort=migsort, device_busy=busy, card=device_card(device),
-            graphed=sim.comm.size == 1, migration_sorts=sorts, migration_skips=skips,
+            graphed=True, migration_sorts=sorts, migration_skips=skips,
         )
         name = "TORCH_DIST_BENCH" + ("_FULL" if full else "")
         if migsort and (full or ranks > 1):  # the skip is there to turn off

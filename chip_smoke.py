@@ -151,7 +151,8 @@ Phases, each of which raises on failure (exit code 1):
      b. four ranks as a (1, 2, 2) grid on the one card over gloo (the y and
         x phases staged, corner rows forwarded), `DistSimulator` with its
         balanced brick planes and capacities (a warm-up `run(20)` grows
-        what overflows, then grid init again): 20 `simulate()` steps, positions
+        what overflows, one `simulate()` captures the step, then grid init
+        again): 20 `simulate()` steps (graph segments), positions
         by pid within 1e-4 of the 20 `step_kernels` steps, counters clean,
         every rank sent halo rows along y and along x, 20 launches of each
         kernel a rank; at step 20, on every rank's combined rows, rank
@@ -213,7 +214,24 @@ Phases, each of which raises on failure (exit code 1):
      and 1,048,576, graphed and eager in turns, timesteps/s, busy share
      (profiler, a 10-step run), equal end states; the (1, 1, 1) `DistSimulator`'s timed step (the
      CLI's `--mesh 1x1x1`) likewise over 20 steps a run, its halo a whole
-     block.
+     block;
+ 15. multi-rank graphs: four ranks on the card over gloo, one process
+     each, as a z-slab line (262,144 grid init, phase 10c's planes and
+     capacities, 105,824 rows a rank) and as a (1, 2, 2) brick grid
+     (`DistSimulator`'s planes and capacities after a warm-up run): each
+     graphed entry point of both engines (step, a click at the second;
+     timed stages; run(20)) against its `.eager` bit for bit after each of
+     3 calls on every rank, every segment replayed under sync debug mode
+     "error"; the chain of each body (segments and transports), the
+     launches of each segment a replay, the capture's seconds; ms a step
+     of 20 `step()` calls and of a `run(20)` graphed and eager in turns
+     (graphs, eager, eager, graphs), and the share of each inside the
+     transports (exchanges and reduces, the card drained before each);
+     then `TPUSPH_BENCH_DIST=2 torchrun --standalone --nproc_per_node 2
+     bench_torch.py` (its gate on), its artifact `graphed`. Phase 11c's
+     `torchrun ... --mesh 1x1x2` is the command line's multi-rank run,
+     which these graphs carry. Four ranks time-share one card: a check of
+     correctness, not a scaling figure.
 The probes' bounds are their FMA (2 flops) or operation counts at 67
 TFLOP/s. Each path's kernel launch counts are set to 0 just before it and
 read just after. A wrapper counts where it launches its kernel; inside a CUDA graph
@@ -223,8 +241,8 @@ per-kernel results (the main path's launches, the launches in one replay
 of the 100-step chain, and for rank, density and force the numbers at step
 20 with each state's under "by_step", the sharded and brick paths'
 launches and phase 13's under "dist_launches", bench_torch's timed run's under
-"bench_launches", one replay of each graphed entry point of phase 14 under
-"graph_launches") and, last, one JSON line {"ok":
+"bench_launches", one replay of each graphed entry point of phase 14 and
+of the four-rank steps of phase 15 under "graph_launches") and, last, one JSON line {"ok":
 true, "device": {...}}.
 """
 
@@ -279,6 +297,7 @@ SKIP_KICK = (0.05, 2.0)  # phase 13b: rows this far below a slab face get this v
 GRAPH_STEPS = 3  # phase 14: replays held bit for bit against the eager calls
 GRAPH_TIERS = (262_144, 1_048_576)  # phase 14: the sharded bench's tiers
 MESH_TIMED_STEPS = 20  # phase 14: timed steps a run of the (1, 1, 1) DistSimulator
+RANK_GRAPH_STEPS = 20  # phase 15: steps a timed turn, and the run's
 GRAPH_CLICK = (400, 300)  # phase 14: the click of the graphed impulse and steps
 KERNEL_STATES = (0, 20, 100)  # steps of 262,144 grid init at which phase 3 checks and times
 TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
@@ -750,18 +769,19 @@ def dist_rank(comm, payload: dict) -> None:
     state = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
 
     # time spent inside the exchanges, the card drained before each so that
-    # the wait for the kernels queued ahead is not charged to them
-    exchange, spent = comm.exchange, [0.0]
+    # the wait for the kernels queued ahead is not charged to them (the
+    # transport a graphed step replays between its segments)
+    exchange, spent = comm._exchange, [0.0]
 
-    def timed_exchange(up, dn):
+    def timed_exchange(up, dn, below, above):
         sync()
         t0 = time.perf_counter()
-        out = exchange(up, dn)
+        out = exchange(up, dn, below, above)
         sync()
         spent[0] += time.perf_counter() - t0
         return out
 
-    comm.exchange = timed_exchange
+    comm._exchange = timed_exchange
     for fn in kernels:
         fn.launches = 0
     auxs = []
@@ -773,7 +793,7 @@ def dist_rank(comm, payload: dict) -> None:
     sync()
     wall = time.perf_counter() - t0
     launches = [fn.launches for fn in kernels]
-    del comm.exchange  # the wrapper refers to comm: no cycle left behind
+    del comm._exchange  # the wrapper refers to comm: no cycle left behind
     for k, aux in enumerate(auxs):
         hold_clean(aux, n, f"rank {comm.rank} step {k}")
         require(int(aux.max_halo_send) > 0, f"step {k}: empty halos on every rank")
@@ -811,6 +831,27 @@ def dist_rank(comm, payload: dict) -> None:
         }, f)
 
 
+def four_slab_caps(cfg):
+    """(planes, occupancy, DistConfig fields) of DIST_RANKS slab ranks at
+    grid init: balanced slab planes, dev capacity 1.25x the most loaded
+    slab, halo 1.5x the fullest 2-cell band."""
+    from tpusph_torch.core.init import grid_positions
+    from tpusph_torch.dist import sharded
+
+    z = grid_positions(cfg)[:, 2]
+    planes = sharded.balanced_slab_planes(z, cfg, DIST_RANKS)
+    zc = np.clip((z / np.float32(cfg.h)).astype(np.int32), 0, cfg.num_cells_per_dim - 1)
+    per_plane = np.bincount(zc, minlength=cfg.num_cells_per_dim)
+    occupancy = [int(per_plane[a:b].sum()) for a, b in zip(planes, planes[1:])]
+    bands = [int(per_plane[a:a + 2].sum()) for a in planes[:-1]]
+    bands += [int(per_plane[b - 2:b].sum()) for b in planes[1:]]
+    up8 = lambda v: -(-int(v) // 8) * 8
+    caps = dict(n_devices=DIST_RANKS, dev_capacity=up8(1.25 * max(occupancy)),
+                halo_capacity=up8(1.5 * max(bands)), migration_capacity=DIST_MIGRATION,
+                slab_planes=planes)
+    return planes, occupancy, caps
+
+
 def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: float, dev) -> dict:
     """Phase 10 (see the module docstring). `reference` is the state after
     20 `step_kernels` steps from grid init. Returns the dist path's
@@ -818,7 +859,7 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
     operations a step on the card, elided and through the whole
     machinery."""
     from tpusph_torch.core.config import tuned_config
-    from tpusph_torch.core.init import grid_positions, init_state
+    from tpusph_torch.core.init import init_state
     from tpusph_torch.dist import sharded
     from tpusph_torch.dist.comm import SlabComm, spawn_ranks
     from tpusph_torch.engine.step import fields_from_state
@@ -874,17 +915,7 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
             os.environ.pop("TPUSPH_DIST_FULL_MACHINERY", None)
 
     # c. four ranks on the one card
-    z = grid_positions(cfg)[:, 2]
-    planes = sharded.balanced_slab_planes(z, cfg, DIST_RANKS)
-    zc = np.clip((z / np.float32(cfg.h)).astype(np.int32), 0, cfg.num_cells_per_dim - 1)
-    per_plane = np.bincount(zc, minlength=cfg.num_cells_per_dim)
-    occupancy = [int(per_plane[a:b].sum()) for a, b in zip(planes, planes[1:])]
-    bands = [int(per_plane[a:a + 2].sum()) for a in planes[:-1]]
-    bands += [int(per_plane[b - 2:b].sum()) for b in planes[1:]]
-    up8 = lambda v: -(-int(v) // 8) * 8
-    caps = dict(n_devices=DIST_RANKS, dev_capacity=up8(1.25 * max(occupancy)),
-                halo_capacity=up8(1.5 * max(bands)), migration_capacity=DIST_MIGRATION,
-                slab_planes=planes)
+    planes, occupancy, caps = four_slab_caps(cfg)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host, no network
     with tempfile.TemporaryDirectory() as tmp:
         ref_path = os.path.join(tmp, "reference.npy")
@@ -946,6 +977,8 @@ def brick_rank(comm, payload: dict) -> None:
     setup_caps = sim.dcfg
     sim.run(DIST_STEPS)  # warm-up: loads the library, fills the caches, grows what overflows
     caps = sim.dcfg
+    sim.setup()
+    sim.simulate()  # the step's capture, whose warm-up launches, outside the counted steps
     sim.setup()  # grid init again, on the capacities the warm-up settled
     occupancy = int(sim.state.valid.sum())
     grid = sim.comm
@@ -1547,7 +1580,9 @@ def skip_rank(comm, payload: dict) -> None:
     whole = np.load(payload["state"])
     whole = {k: whole[k] for k in ("position", "velocity", "valid")}
     start = sharded.distribute_state(types.SimpleNamespace(**whole), cfg, dcfg, comm)
-    step = sharded.make_sharded_step(cfg, dcfg, comm)
+    # the eager step, whose skip is the host read (a graph on torch 2.11
+    # sorts every step; phase 15 holds the graphed step to this one)
+    step = sharded.make_sharded_step(cfg, dcfg, comm).eager
     step(start)  # warm-up: loads the library, fills the caches
     kernels = (qrank.rank_queries, fused.density, fused.force)
     runs = _skip_runs(step, start, kernels, SKIP_STEPS)
@@ -1568,10 +1603,10 @@ def skip_rank(comm, payload: dict) -> None:
         }, f)
 
 
-def _turns(ms: dict) -> str:
-    """Four times taken in turns sort, skip, skip, sort ({mode: [first,
-    second]}), in that order."""
-    order = (ms["sort"][0], ms["skip"][0], ms["skip"][1], ms["sort"][1])
+def _turns(ms: dict, first: str = "sort", second: str = "skip") -> str:
+    """Four times taken in turns first, second, second, first ({mode:
+    [first run, second run]}), in that order."""
+    order = (ms[first][0], ms[second][0], ms[second][1], ms[first][1])
     return " / ".join(f"{t:.3f}" for t in order)
 
 
@@ -1993,6 +2028,238 @@ def graph_phase(card: str, kernels, timed_rate: float, dev) -> dict:
           f"{rates['graphs'][1]:.3f}; busy share graphs {busy['graphs']} eager {busy['eager']} "
           f"(the collect by pid included); the states equal bit for bit; {card}")
     return per_replay
+
+
+def _timed_transports(line, sync):
+    """Wrap `line`'s transports (`_exchange`, `_all_reduce`: what a graphed
+    body replays between its segments, and what an eager step calls) in
+    timers that drain the card before and after each, so that the wait for
+    the kernels queued ahead is not charged to them. Returns ({transport:
+    seconds spent}, a function that takes the wrappers off)."""
+    names = ("_exchange", "_all_reduce")
+    spent = dict.fromkeys(names, 0.0)
+
+    def timer(name, fn):
+        def timed(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return timed
+
+    for name in names:
+        setattr(line, name, timer(name, getattr(line, name)))
+
+    def undo():
+        for name in names:
+            delattr(line, name)  # the wrappers refer to line: no cycle left behind
+
+    return spent, undo
+
+
+def rank_graph_engine(comm, cfg, dcfg, start, makers, kernels) -> dict:
+    """Phase 15 on one rank for one engine: the captures, each graphed
+    entry point against its `.eager` bit for bit after each of 3 calls,
+    the chains and the launches of each segment, the turns and the
+    transport shares (module docstring). Returns its numbers."""
+    make_step, make_timed, make_run = makers
+    sync = torch.cuda.synchronize
+    names = ("rank", "density", "force")
+    step = make_step(cfg, dcfg, comm)
+    build, update = make_timed(cfg, dcfg, comm)
+    run = make_run(cfg, dcfg, comm, RANK_GRAPH_STEPS)
+    capture_s = {}
+    for label, first in (("step", lambda: step(start)),
+                         ("step with a click", lambda: step(start, GRAPH_CLICK)),
+                         ("timed", lambda: update(*build(start))), ("run", lambda: run(start))):
+        sync()
+        t0 = time.perf_counter()
+        first()
+        sync()
+        capture_s[label] = time.perf_counter() - t0
+
+    a = b = c = d = start
+    for k in range(GRAPH_STEPS):
+        click = GRAPH_CLICK if k == 1 else None
+        before = [fn.launches for fn in kernels]
+        a, aux_a = step(a, click)
+        if k == 0:
+            step_launches = [fn.launches - n for fn, n in zip(kernels, before)]
+        b, aux_b = step.eager(b, click)
+        require(_bit_equal(_as_list(a, aux_a), _as_list(b, aux_b)),
+                f"15 rank {comm.rank}: graphed step {k} differs from the eager one")
+        c, aux_c = update(*build(c))
+        d, aux_d = update.eager(*build.eager(d))
+        require(_bit_equal(_as_list(c, aux_c), _as_list(d, aux_d)),
+                f"15 rank {comm.rank}: graphed timed step {k} differs from the eager one")
+        (e, aux_e), (f, aux_f) = run(start), run.eager(start)
+        require(_bit_equal(_as_list(e, aux_e), _as_list(f, aux_f)),
+                f"15 rank {comm.rank}: graphed run({RANK_GRAPH_STEPS}) call {k} differs")
+        for aux in (aux_a, aux_c, aux_e):
+            hold_clean(aux, cfg.num_particles, f"15 rank {comm.rank} call {k}")
+    require(step_launches == [1, 1, 1], f"15 rank {comm.rank}: a step replay launched "
+            f"{step_launches} (rank, density, force)")
+
+    chains = {}
+    for entry, fn in (("step", step), ("timed", build), ("run", run)):
+        for key, loop in fn.graphs.loops.items():
+            chains[" ".join(str(x) for x in key)] = {
+                "structure": loop.structure,
+                "launches": [{n: seg.get(kf, 0) for n, kf in zip(names, kernels)}
+                             for seg in loop.launches]}
+
+    def step_ms(fn):
+        state = start
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(RANK_GRAPH_STEPS):
+            state, _ = fn(state)
+        sync()
+        return (time.perf_counter() - t0) / RANK_GRAPH_STEPS * 1e3
+
+    def run_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        fn(start)
+        sync()
+        return (time.perf_counter() - t0) / RANK_GRAPH_STEPS * 1e3
+
+    turns = {"step": {"graphs": [], "eager": []}, "run": {"graphs": [], "eager": []}}
+    for mode in ("graphs", "eager", "eager", "graphs"):
+        turns["step"][mode].append(step_ms(step if mode == "graphs" else step.eager))
+        turns["run"][mode].append(run_ms(run if mode == "graphs" else run.eager))
+    line = comm if hasattr(comm, "_exchange") else comm._brick
+    transport = {}
+    for mode, fn in (("graphs", step), ("eager", step.eager)):
+        spent, undo = _timed_transports(line, sync)
+        try:
+            ms = step_ms(fn)
+        finally:
+            undo()
+        per_step = {name: t / RANK_GRAPH_STEPS * 1e3 for name, t in spent.items()}
+        transport[mode] = {"ms_per_step": ms, "transport_ms_per_step": sum(per_step.values()),
+                           "exchange_ms_per_step": per_step["_exchange"],
+                           "reduce_ms_per_step": per_step["_all_reduce"]}
+    return {"capture_s": capture_s, "step_launches": step_launches, "chains": chains,
+            "turns": turns, "transport": transport}
+
+
+def rank_graph_rank(comm, payload: dict) -> None:
+    """One of phase 15's ranks (a process of its own on the one card): the
+    z-slab line, then the (1, 2, 2) brick grid over the same group; writes
+    its numbers to `payload["out"]/graphs<r>.json`."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.core.init import init_state
+    from tpusph_torch.dist import mesh3d, sharded
+    from tpusph_torch.dist.simulator import DistSimulator
+    from tpusph_torch.kernels import fused, qrank
+
+    kernels = (qrank.rank_queries, fused.density, fused.force)
+    cfg = tuned_config(payload["n"])
+    whole = init_state(cfg, device="cpu")
+    dcfg = sharded.DistConfig(**payload["dcfg"])
+    start = sharded.distribute_state(whole, cfg, dcfg, comm)
+    out = {"rank": comm.rank, "slab": rank_graph_engine(
+        comm, cfg, dcfg, start,
+        (sharded.make_sharded_step, sharded.make_sharded_timed, sharded.make_sharded_run),
+        kernels)}
+    sim = DistSimulator(cfg, comm, mesh_shape=BRICK_GRID, device=comm.device)
+    sim.setup()
+    sim.run(DIST_STEPS)  # settles the capacities (grows what overflows), as phase 11b
+    grid, mcfg = sim.comm, sim.dcfg
+    start = mesh3d.distribute_state_3d(whole, cfg, mcfg, grid)
+    out["brick"] = rank_graph_engine(
+        grid, cfg, mcfg, start,
+        (mesh3d.make_mesh3d_step, mesh3d.make_mesh3d_timed, mesh3d.make_mesh3d_run), kernels)
+    out["brick"]["caps"] = [mcfg.dev_capacity, list(mcfg.halo_capacity),
+                            list(mcfg.migration_capacity)]
+    with open(os.path.join(payload["out"], f"graphs{comm.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def multirank_phase(card: str, dev) -> dict:
+    """Phase 15 (see the module docstring). Returns each kernel's launches
+    in one replayed step of each rank, by engine."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.dist.comm import spawn_ranks
+
+    names = ("rank", "density", "force")
+    cfg = tuned_config(N_MAIN)
+    planes, occupancy, caps = four_slab_caps(cfg)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host, no network
+    with tempfile.TemporaryDirectory() as tmp:
+        payload = {"n": N_MAIN, "dcfg": caps, "out": tmp}
+        t0 = time.perf_counter()
+        spawn_ranks(rank_graph_rank, DIST_RANKS, f"file://{tmp}/store", dev, (payload,),
+                    deadline_s=DIST_DEADLINE_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"graphs{r}.json")) as f:
+                ranks.append(json.load(f))
+    require([r["rank"] for r in ranks] == list(range(DIST_RANKS)), "a rank did not report")
+    print(f"15. multi-rank graphs, {DIST_RANKS} ranks on one card over gloo, {N_MAIN} grid init "
+          f"(spawn to join {spawn_s:.1f} s): every graphed step (a click at the second), timed "
+          f"step and run({RANK_GRAPH_STEPS}) equals its .eager bit for bit after each of "
+          f"{GRAPH_STEPS} calls on every rank, counters clean, each segment replayed under sync "
+          f"debug mode error; slab planes {planes}, occupancy {occupancy}; {card}")
+    launches = {n: {} for n in names}
+    for engine, label in (("slab", "z-slab line"), ("brick", f"brick grid {BRICK_GRID}")):
+        for r in ranks:
+            e = r[engine]
+            step = next(c for key, c in e["chains"].items() if key.startswith("step False"))
+            kinds = {k: step["structure"].count(k) for k in ("segment", "exchange", "reduce")}
+            t, x = e["turns"], e["transport"]
+            share = {m: x[m]["transport_ms_per_step"] / x[m]["ms_per_step"] for m in x}
+            print(f"  {label}, rank {r['rank']}: a step {kinds['segment']} segments, "
+                  f"{kinds['exchange']} exchanges, {kinds['reduce']} reduce "
+                  f"({' '.join(step['structure'])}); launches of each segment a replay "
+                  f"{step['launches']}; capture s {e['capture_s']}"
+                  + (f"; capacities {e['caps']}" if "caps" in e else ""))
+            print(f"    ms a step in turns graphs, eager, eager, graphs: {RANK_GRAPH_STEPS} step() "
+                  f"calls {_turns(t['step'], 'graphs', 'eager')}; run({RANK_GRAPH_STEPS}) "
+                  f"{_turns(t['run'], 'graphs', 'eager')}; inside the transports, graphs "
+                  + "; eager ".join(
+                      f"{x[m]['transport_ms_per_step']:.3f} of {x[m]['ms_per_step']:.3f} ms "
+                      f"({share[m]:.3f}: exchanges {x[m]['exchange_ms_per_step']:.3f}, reduce "
+                      f"{x[m]['reduce_ms_per_step']:.3f})" for m in ("graphs", "eager")))
+            for n, count in zip(names, e["step_launches"]):
+                launches[n].setdefault(f"four {engine} ranks, one graphed step", []).append(count)
+        slowest = {m: max(sum(r[engine]["turns"]["step"][m]) / 2 for r in ranks)
+                   for m in ("graphs", "eager")}
+        print(f"  {label}: slowest rank {slowest['graphs']:.3f} ms a graphed step against "
+              f"{slowest['eager']:.3f} eager (the mean of its two turns); four ranks time-share "
+              f"one card: a check of correctness, not a scaling figure; {card}")
+
+    # the sharded bench on two ranks under torchrun
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("TPUSPH_", "WORLD_SIZE"))}
+    with tempfile.TemporaryDirectory() as tmp:
+        env.update(TPUSPH_BENCH_N=str(N_MAIN), TPUSPH_BENCH_STEPS=str(CHAIN_STEPS),
+                   TPUSPH_BENCH_DIST="2", TPUSPH_BENCH_ARTIFACT_DIR=tmp, OMP_NUM_THREADS="1",
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               "2", os.path.join(REPO, "bench_torch.py")]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                           timeout=BENCH_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        require(r.returncode == 0, f"torchrun bench_torch.py exited {r.returncode}:\n"
+                f"{r.stderr[-3000:]}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        with open(os.path.join(tmp, "TORCH_DIST_BENCH.json")) as f:
+            art = json.load(f)
+    require(line["metric"] == f"torch_sph_dist_timesteps_per_sec_n{N_MAIN}_r2"
+            and line["parity"] == "pass" and line["value"] > 0, f"15 bench: {line}")
+    require(art["graphed"] is True and art["ranks"] == 2, f"15 bench artifact: {art}")
+    print(f"TPUSPH_BENCH_DIST=2 torchrun --standalone --nproc_per_node 2 bench_torch.py: "
+          f"{json.dumps(line)} ({secs:.1f} s with its gate); graphed {art['graphed']}, busy "
+          f"{art['device_busy']}, capacities dev {art['dev_capacity']} halo "
+          f"{art['halo_capacity']} migration {art['migration_capacity']}, migration (sorts, "
+          f"skips) ({art['migration_sorts']}, {art['migration_skips']}); two ranks time-share "
+          f"one card; {card}")
+    return launches
 
 
 def main() -> int:
@@ -2505,6 +2772,8 @@ def main() -> int:
     for name, counts in slice_phase(card, kernels, dev).items():
         dist_launches[name].update(counts)
     graph_launches = graph_phase(card, kernels, timed_rate, dev)
+    for name, counts in multirank_phase(card, dev).items():
+        graph_launches[name].update(counts)
 
     for name, r in results.items():
         r["launches_per_replay"] = replay_launches.get(name, 0)

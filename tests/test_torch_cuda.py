@@ -38,7 +38,11 @@ to the fields step bit for bit; `build_bench`'s three starts tables agree;
 graphed entry point (`make_step`, `make_impulse`, the one-rank slab and
 brick steps, timed stages and runs) replays a CUDA graph bit for bit
 equal to its eager path, with sync debug mode "error" around the
-replays, and a body that reads the card on the host fails its capture."""
+replays, and a body that reads the card on the host fails its capture.
+With peers: a segmented loop replays its chain of graphs and transports,
+and two ranks on the card over gloo (a slab line, a (2, 1, 1) brick grid)
+replay each graphed entry point's segments bit for bit equal to its eager
+path, each kernel once a step."""
 
 import numpy as np
 import pytest
@@ -934,3 +938,53 @@ def test_a_host_read_fails_the_capture(dev):
 
     with pytest.raises(HostReadError):
         GraphedLoop(body, dev)([torch.ones(4, device=dev)])
+
+
+# ------------------------------------ ranks with peers: segments of graphs
+
+
+def test_a_segmented_loop_replays_its_chain(dev):
+    """A body split by a transport that goes through the host: on the card
+    two segments and the transport between them, replayed bit for bit
+    equal to the body run eagerly (sync debug mode "error" around each
+    segment, not around the transport), each replay from new inputs."""
+    from tpusph_torch.engine import graphs
+
+    def transport(t):
+        return [t.cpu().to(t.device) + 1]  # a copy to the host and back, as gloo's
+
+    def body(inputs):
+        (y,) = graphs.cross("exchange", transport, [inputs[0] * 2], [inputs[0]])
+        return [y * 3]
+
+    loop = graphs.SegmentedLoop(body, dev)
+    for k in range(3):
+        x = torch.arange(8.0, device=dev) + k
+        got = loop([x])
+        assert torch.equal(got[0], body([x])[0])
+    assert loop.structure == ["segment", "exchange", "segment"]
+    assert [type(item).__name__ for item in loop.chain] == [
+        "CapturedGraph", "_Transport", "CapturedGraph"]
+
+
+@pytest.mark.parametrize("engine", ["slab", "brick"])
+def test_two_ranks_on_the_card_replay_segments(dev, engine, tmp_path):
+    """Two ranks on the card over gloo, a z-slab line or a (2, 1, 1) brick
+    grid (`torch_dist_ranks.card_graph_checks`): each graphed entry point
+    against its `.eager` bit for bit after each of 3 calls, every segment
+    replayed under sync debug mode "error", and each kernel launched once
+    a replayed step, in the segment after the halo exchange."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_dist_ranks as ranks
+    import torch_mesh3d_ranks as bricks
+
+    from tpusph_torch.dist.comm import spawn_ranks
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cases = {"grid": ranks._as_numpy(init_state(ranks.dense_cfg(), device="cpu")),
+             "blob": bricks.blob()}
+    spawn_ranks(ranks.card_graph_checks, 2, f"file://{tmp_path}/store", dev, (cases, engine),
+                300.0, shape=None if engine == "slab" else (2, 1, 1))

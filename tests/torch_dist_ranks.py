@@ -401,3 +401,188 @@ def checkpoint_resume(comm, path: str, ref_path: str) -> None:
     _clean(aux, cfg.num_particles)
     got = collect_state(state, cfg.num_particles, comm)["position"]
     np.testing.assert_allclose(got, np.load(ref_path), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ segmented graphs, peers
+
+
+def _same_aux(a: DistAux, b: DistAux) -> None:
+    """The nine counters equal, dtypes included (the graphed ones live on
+    the rank's device, a host-staged group's eager ones on the host)."""
+    assert [int(x) for x in a] == [int(x) for x in b], (a, b)
+    assert [x.dtype for x in a] == [x.dtype for x in b], (a, b)
+
+
+def graphed_against_eager(comm, cfg, dcfg, start, makers, steps: int = 3) -> dict:
+    """Each graphed entry point of `makers` = (make_step, make_timed,
+    make_run) against its `.eager` from `start`, bit for bit after each of
+    `steps` calls, the nine counters and their dtypes included: the step
+    (a click at the second), the timed stages, and `run(steps)`. Returns
+    {entry: its `RankGraphs`} ("step", "timed", "run")."""
+    make_step, make_timed, make_run = makers
+    step = make_step(cfg, dcfg, comm)
+    build, update = make_timed(cfg, dcfg, comm)
+    a = b = c = d = start
+    for k in range(steps):
+        click = CLICK if k == CLICK_STEP else None
+        (a, aux_a), (b, aux_b) = step(a, click), step.eager(b, click)
+        _same(a, b)
+        _same_aux(aux_a, aux_b)
+        (c, aux_c), (d, aux_d) = update(*build(c)), update.eager(*build.eager(d))
+        _same(c, d)
+        _same_aux(aux_c, aux_d)
+    _clean(aux_a, cfg.num_particles)
+    run = make_run(cfg, dcfg, comm, steps)
+    for _ in range(2):  # the capture, then a replay of the same run
+        (a, aux_a), (b, aux_b) = run(start), run.eager(start)
+        _same(a, b)
+        _same_aux(aux_a, aux_b)
+    _same(a, d)  # the run is `steps` steps
+    return {"step": step.graphs, "timed": build.graphs, "run": run.graphs}
+
+
+def _counts(structure) -> dict:
+    return {kind: structure.count(kind) for kind in ("segment", "exchange", "reduce")}
+
+
+def slab_graph_checks(comm, cases: dict) -> None:
+    """The z-slab engine's graphed entry points against their eager paths
+    on this rank count (the grid init drifting ±3 along z, so rows cross
+    the faces), and the chain of a step: three segments, split at the two
+    exchanges and ending at the reduce; the run one step's segments and a
+    fold that reduces once."""
+    from tpusph_torch.dist import sharded
+
+    cfg = dense_cfg()
+    dcfg = _dcfg(comm, cfg)
+    start = distribute_state(_as_state(drifting(cases["grid"])), cfg, dcfg, comm)
+    got = {name: graphs.structures() for name, graphs in graphed_against_eager(
+        comm, cfg, dcfg, start,
+        (make_sharded_step, make_sharded_timed, make_sharded_run)).items()}
+    forced = sharded._force_migsort()
+    for clicked in (False, True):
+        step = got["step"][("step", clicked, False, forced)]
+        assert step == ["segment", "exchange", "segment", "exchange", "segment", "reduce"], step
+    timed = got["timed"]
+    assert _counts(timed[("build", False, forced)]) == {"segment": 2, "exchange": 1, "reduce": 1}
+    assert _counts(timed[("update", False, forced)]) == {"segment": 3, "exchange": 1, "reduce": 1}
+    run = got["run"]
+    assert _counts(run[("run", False, forced)]) == {"segment": 3, "exchange": 2, "reduce": 0}
+    assert run[("fold", False, forced)] == ["segment", "reduce", "segment"]
+
+
+def jax_graph_checks(comm, payload: dict) -> None:
+    """Two ranks' graphed step and run against the JAX package's jitted
+    `make_sharded_step` and `make_sharded_run`: the same distributed state
+    in, per rank the same live rows (rtol 1e-5, atol 1e-6) and the same
+    nine counters out after every step and after the run."""
+    cfg = sparse_cfg()
+    dcfg = DistConfig(**payload["dcfg"])
+    start = dist_state_from_numpy(payload["start"], comm.rank, dcfg, "cpu")
+    step = make_sharded_step(cfg, dcfg, comm)
+    state, migrated = start, 0
+    for want, want_aux in zip(payload["states"], payload["auxs"]):
+        state, aux = step(state)
+        assert [int(a) for a in aux] == want_aux, (aux, want_aux)
+        _live_rows_close(state, dist_state_from_numpy(want, comm.rank, dcfg, "cpu"))
+        migrated += int(aux.max_migration_send)
+    assert migrated > 0
+    state, aux = make_sharded_run(cfg, dcfg, comm, len(payload["states"]))(start)
+    assert [int(a) for a in aux] == payload["run_aux"], (aux, payload["run_aux"])
+    _live_rows_close(state, dist_state_from_numpy(payload["run"], comm.rank, dcfg, "cpu"))
+
+
+def _live_rows_close(state: DistState, ref: DistState) -> None:
+    """The live rows of two blocks as (pid, position, velocity) by pid, at
+    rtol 1e-5 / atol 1e-6."""
+    assert int(state.valid.sum()) == int(ref.valid.sum())
+
+    def live_rows(s):
+        order = torch.argsort(s.pid[s.valid])
+        return [a[s.valid][order].numpy() for a in (s.pid, s.position, s.velocity)]
+
+    for got, exp in zip(live_rows(state), live_rows(ref)):
+        np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-6)
+
+
+def planted_read(comm) -> None:
+    """Rank 0 plants a `.item()` in the graphed step's body: its capture
+    guard raises `HostReadError` there, while rank 1 goes on to the
+    migration exchange and waits for it."""
+    from tpusph_torch.dist import sharded
+
+    cfg = sparse_cfg()
+    dcfg = _dcfg(comm, cfg)
+    state = distribute_state(_as_state(_as_numpy(init_state(cfg, True, 13, "cpu"))), cfg, dcfg,
+                             comm)
+    if comm.rank == 0:
+        integrate = sharded.integrate_fields
+
+        def reading(*args, **kwargs):
+            out = integrate(*args, **kwargs)
+            out[0][0].item()
+            return out
+
+        sharded.integrate_fields = reading
+    make_sharded_step(cfg, dcfg, comm)(state)
+
+
+def simulator_growth(comm) -> None:
+    """`DistSimulator` on this rank count from a halo and a migration
+    capacity too small: each growth makes the step again, captured once
+    more on every rank together; 4 steps end equal to an ample run."""
+    from tpusph_torch.dist.simulator import DistSimulator
+    from tpusph_torch.engine import graphs
+
+    cfg = dense_cfg()
+    ample = DistSimulator(cfg, comm, device="cpu")
+    ample.setup()
+    for _ in range(4):
+        ample.simulate()
+    tiny = DistConfig(comm.size, cfg.padded_num_particles, 8, 8)
+    sim = DistSimulator(cfg, comm, dcfg=tiny, device="cpu")
+    sim.setup()
+    grows, grow = [], sim._grow
+    sim._grow = lambda aux: (grows.append(aux), grow(aux))
+    before = graphs.captures
+    for _ in range(4):
+        sim.simulate()
+    del sim._grow  # the wrapper refers to sim: no cycle left behind
+    assert grows and graphs.captures - before == len(grows) + 1, (grows, graphs.captures - before)
+    assert sim.dcfg.halo_capacity > 8
+    np.testing.assert_allclose(sim.get_position(), ample.get_position(), rtol=0, atol=1e-6)
+
+
+def card_graph_checks(comm, cases: dict, engine: str) -> None:
+    """On the card, two ranks over gloo: the slab line's or the (2, 1, 1)
+    brick grid's graphed entry points against their eager paths
+    (`graphed_against_eager`; every segment replays under sync debug mode
+    "error"), the counters of a graphed call on the card, and each
+    kernel launched once a replayed step, in the segment after the halo
+    exchange; none in a run's fold."""
+    from tpusph_torch.dist import mesh3d
+    from tpusph_torch.engine.graphs import COUNTED
+
+    if engine == "slab":
+        cfg = dense_cfg()
+        dcfg = _dcfg(comm, cfg)
+        start = distribute_state(_as_state(drifting(cases["grid"])), cfg, dcfg, comm)
+        makers = (make_sharded_step, make_sharded_timed, make_sharded_run)
+    else:
+        cfg = sparse_cfg()
+        dcfg = mesh3d.Mesh3DConfig(comm.shape, 512, (256,) * 3, (128,) * 3)
+        start = mesh3d.distribute_state_3d(_as_state(cases["blob"]), cfg, dcfg, comm)
+        makers = (mesh3d.make_mesh3d_step, mesh3d.make_mesh3d_timed, mesh3d.make_mesh3d_run)
+    assert start.position.is_cuda
+    got = graphed_against_eager(comm, cfg, dcfg, start, makers)
+    for name, graphs in got.items():
+        for key, loop in graphs.loops.items():
+            per_kernel = [sum(seg.get(fn, 0) for seg in loop.launches) for fn in COUNTED]
+            want = 0 if key[0] in ("build", "fold") else 1
+            assert per_kernel == [want] * 3, (name, key, per_kernel)
+            if key[0] in ("step", "run"):  # the kernels follow the halo exchange
+                assert loop.structure[:2] == ["segment", "exchange"], loop.structure
+                assert all(loop.launches[1].get(fn) == 1 for fn in COUNTED), loop.launches
+    step = makers[0](cfg, dcfg, comm)
+    _, aux = step(start)
+    assert all(a.is_cuda for a in aux)

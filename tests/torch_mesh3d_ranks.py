@@ -362,3 +362,60 @@ def jax_simulator_checks(comm: SlabComm, payload: dict) -> None:
         np.testing.assert_allclose(sim.get_position(), want, rtol=1e-5, atol=1e-5)
     assert sim.last_aux.halo_overflow == 0 and sim.num_particles_alive() == cfg.num_particles
 
+
+
+# ------------------------------------------------ segmented graphs, peers
+
+
+def brick_graph_checks(comm: BrickComm, cases: dict) -> None:
+    """The brick engine's graphed entry points against their eager paths
+    on this grid (the blob drifting ±3 along y and x, so rows cross the y
+    and x faces; ±3 along z too on a grid split along z), and the chains:
+    one exchange a halo phase and a hop along each axis that has a peer,
+    the step ending at the reduce."""
+    from torch_dist_ranks import _counts, graphed_against_eager
+
+    from tpusph_torch.dist.mesh3d import make_mesh3d_run, make_mesh3d_timed
+
+    cfg = sparse_cfg()
+    arrays = planar_drift(cases["blob"])
+    arrays["velocity"][:, 2] = arrays["velocity"][:, 0]
+    mcfg = mcfg_of(comm.shape)
+    start = distribute_state_3d(_as_state(arrays), cfg, mcfg, comm)
+    got = {name: graphs.structures() for name, graphs in graphed_against_eager(
+        comm, cfg, mcfg, start, (make_mesh3d_step, make_mesh3d_timed, make_mesh3d_run)).items()}
+    axes = sum(m > 1 for m in comm.shape)  # the axes that have a peer
+    for clicked in (False, True):
+        step = got["step"][("step", clicked)]
+        assert step[-1] == "reduce", step
+        assert _counts(step) == {"segment": 2 * axes + 1, "exchange": 2 * axes, "reduce": 1}
+    timed = got["timed"]
+    assert _counts(timed[("build",)]) == {"segment": axes + 1, "exchange": axes, "reduce": 1}
+    assert _counts(timed[("update",)]) == {"segment": axes + 2, "exchange": axes, "reduce": 1}
+    assert _counts(got["run"][("run",)]) == {"segment": 2 * axes + 1, "exchange": 2 * axes,
+                                             "reduce": 0}
+
+
+def jax_graph_brick_checks(comm: BrickComm, payload: dict) -> None:
+    """Four ranks as a (1, 2, 2) grid: the graphed step and run against the
+    JAX package's jitted `make_mesh3d_step` and `make_mesh3d_run` from the
+    same distributed state, per rank the same live rows (rtol 1e-5, atol
+    1e-6) and the same nine counters after every step and after the run."""
+    from torch_dist_ranks import _live_rows_close
+
+    from tpusph_torch.dist.mesh3d import make_mesh3d_run
+
+    cfg = sparse_cfg()
+    mcfg = Mesh3DConfig(**payload["mcfg"])
+    start = dist_state_from_numpy(payload["start"], comm.rank, mcfg, "cpu")
+    step = make_mesh3d_step(cfg, mcfg, comm)
+    state, migrated = start, 0
+    for want, want_aux in zip(payload["states"], payload["auxs"]):
+        state, aux = step(state)
+        assert [int(a) for a in aux] == want_aux, (aux, want_aux)
+        _live_rows_close(state, dist_state_from_numpy(want, comm.rank, mcfg, "cpu"))
+        migrated += int(aux.max_migration_send)
+    assert migrated > 0
+    state, aux = make_mesh3d_run(cfg, mcfg, comm, len(payload["states"]))(start)
+    assert [int(a) for a in aux] == payload["run_aux"], (aux, payload["run_aux"])
+    _live_rows_close(state, dist_state_from_numpy(payload["run"], comm.rank, mcfg, "cpu"))

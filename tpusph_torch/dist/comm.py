@@ -41,6 +41,8 @@ import time
 
 import torch
 
+from tpusph_torch.engine.graphs import cross
+
 _ALIGN = 8  # bytes; every packed segment starts on a multiple of it
 
 
@@ -63,6 +65,14 @@ def _unpack(buf: torch.Tensor, like) -> list:
         out.append(buf[pos : pos + nbytes].view(t.dtype).reshape(t.shape))
         pos += nbytes + (-nbytes % _ALIGN)
     return out
+
+
+def int32s(values, device) -> torch.Tensor:
+    """int32[len(values)] of 0-d tensors and ints, an int filled in on
+    `device` (a copy from the host would wait on the card)."""
+    return torch.stack([v.to(torch.int32) if torch.is_tensor(v)
+                        else torch.full((), v, dtype=torch.int32, device=device)
+                        for v in values])
 
 
 def _packed_size(like) -> int:
@@ -132,23 +142,26 @@ class _Group:
         """(int32[len(sums)] summed over the ranks, int32[len(maxes)] maxed
         over the ranks) of 0-d tensors or ints: two `all_reduce`s of one
         stacked tensor each. The results stay where the reduction ran: on
-        the host for a staged group, else on this rank's device. An int is
-        filled in on the device (a copy from the host would wait on the
-        card)."""
+        the host for a staged group, else on this rank's device (inside a
+        segmented body: static tensors on the device, `graphs.cross`). An
+        int is filled in on the device (a copy from the host would wait on
+        the card)."""
+        stacked = [int32s(values, self.device) for values in (sums, maxes)]
+        if self.size == 1:
+            return tuple(stacked)
+        # looked up at each call, so that a transport recorded by a graph
+        # runs what the instance holds then
+        return tuple(cross("reduce", lambda s, m: self._all_reduce(s, m), stacked, stacked))
+
+    def _all_reduce(self, sums: torch.Tensor, maxes: torch.Tensor):
         import torch.distributed as dist
 
         out = []
-        for values, op in ((sums, "SUM"), (maxes, "MAX")):
-            t = torch.stack([
-                v.to(torch.int32) if torch.is_tensor(v)
-                else torch.full((), v, dtype=torch.int32, device=self.device)
-                for v in values
-            ])
-            if self.size > 1:
-                t = self._out(t)
-                dist.all_reduce(t, op=getattr(dist.ReduceOp, op), group=self.group)
+        for t, op in ((sums, dist.ReduceOp.SUM), (maxes, dist.ReduceOp.MAX)):
+            t = self._out(t)
+            dist.all_reduce(t, op=op, group=self.group)
             out.append(t)
-        return tuple(out)
+        return out
 
     def gather(self, tensors) -> list[list]:
         """Every rank's `tensors` on every rank: a list, by group rank, of
@@ -157,6 +170,9 @@ class _Group:
         tensors = list(tensors)
         if self.size == 1:
             return [tensors]
+        return cross("gather", lambda t: self._gather(t), [tensors], [tensors] * self.size)
+
+    def _gather(self, tensors: list) -> list[list]:
         import torch.distributed as dist
 
         mine = self._out(_pack(tensors))
@@ -186,8 +202,16 @@ class _Line:
         from_above): what the previous position sent up and what the next
         sent down, shaped as `up` and `dn`. An end of the line receives
         zeros from the side where there is no rank, what `ppermute`
-        delivers to a device with no source."""
-        return self._transport()._exchange(up, dn, *self._peers())
+        delivers to a device with no source. Where this rank has a peer on
+        either side it is a transport (`graphs.cross`: a boundary between
+        two segments of a graphed body); with none it only makes zeros."""
+        below, above = self._peers()
+        up, dn = list(up), list(dn)
+        if below is None and above is None:
+            return self._transport()._exchange(up, dn, below, above)
+        return cross("exchange",
+                     lambda u, d: self._transport()._exchange(u, d, below, above),
+                     [up, dn], [up, dn])
 
     def shift(self, tensors, up: bool = True) -> list:
         """Send each tensor to the next position and return what the

@@ -38,9 +38,12 @@ drop, and a misrouting counter per axis for the one-hop-per-axis
 invariant. Offsets that depend on the data stay 0-d tensors on the device
 (`sharded._take`), so a step reads nothing back. A (1, 1, 1) grid runs the
 whole machinery, every exchange returning zeros: the JAX package elides
-nothing here either. On such a grid each step, timed phase and
-production chain is one CUDA-graph replay on a card (`sharded.OneRank`),
-as tpusph jits each as one dispatch; a rank with peers runs them eagerly.
+nothing here either. Each step, timed phase and production chain is
+CUDA-graph replays on a card (`sharded.RankGraphs`), as tpusph jits each
+as one dispatch: one replay on a (1, 1, 1) grid; with peers segments
+split at each exchange along an axis that has a peer (the halo phases and
+the migration hops) and ending at the reduce, the transports between
+them: a (1, 2, 2) grid has four exchanges a step, a (2, 2, 2) grid six.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from tpusph_torch.dist.comm import BrickComm
 from tpusph_torch.dist.sharded import (
     DistAux,
     DistState,
-    OneRank,
+    RankGraphs,
     _check_device,
     _compact,
     _compute_sorted_fields,
@@ -354,21 +357,31 @@ def _device_update3d(
     return x, v, valid_new, pid_new, (ovf_w, mig_ovf, misrouted, valid_new.sum(), mig_send)
 
 
-def _device_step3d(
+def _local_step3d(
     pos, vel, valid, pid, click_cell, click_active, cfg: SimConfig, mcfg: Mesh3DConfig,
     comm: BrickComm, backend: str = "kernels", with_click: bool = True,
 ):
     """One timestep on one rank's brick: `_device_build3d` (staged halo
     exchange and sort), then `_device_update3d` (kernels, integration,
-    migration), the counters reduced over every rank into a DistAux."""
+    migration). Returns (x, v, valid, pid, sums, maxes), the counters of
+    this rank not yet reduced (`sharded._local_step`'s contract)."""
     *inter, halo_ovf, oob, halo_send = _device_build3d(pos, vel, valid, pid, cfg, mcfg, comm)
     x, v, valid_new, pid_new, (ovf_w, mig_ovf, misrouted, n_valid, mig_send) = _device_update3d(
         *inter, click_cell, click_active, cfg, mcfg, comm, backend, with_click=with_click
     )
-    sums, maxes = comm.reduce(
-        [halo_ovf, mig_ovf, ovf_w, oob, misrouted, n_valid], [n_valid, halo_send, mig_send]
-    )
-    return x, v, valid_new, pid_new, DistAux(*sums, *maxes)
+    return (x, v, valid_new, pid_new, [halo_ovf, mig_ovf, ovf_w, oob, misrouted, n_valid],
+            [n_valid, halo_send, mig_send])
+
+
+def _device_step3d(
+    pos, vel, valid, pid, click_cell, click_active, cfg: SimConfig, mcfg: Mesh3DConfig,
+    comm: BrickComm, backend: str = "kernels", with_click: bool = True,
+):
+    """`_local_step3d`, the counters reduced over every rank into a DistAux."""
+    *rows, sums, maxes = _local_step3d(pos, vel, valid, pid, click_cell, click_active, cfg,
+                                       mcfg, comm, backend, with_click)
+    sums, maxes = comm.reduce(sums, maxes)
+    return (*rows, DistAux(*sums, *maxes))
 
 
 def _prepare3d(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, backend: str) -> str:
@@ -385,13 +398,14 @@ def _prepare3d(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, backend: str
     return _kernels_for(cfg, comm, backend)
 
 
-def _one_rank3d(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, backend: str) -> OneRank:
-    """The brick engine's per-rank functions on a (1, 1, 1) grid as
-    `sharded.OneRank` graphs. The brick engine has no migration branch, so
-    nothing keys its graphs and no body counts one."""
-    return OneRank(
+def _rank_graphs3d(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
+                   backend: str) -> RankGraphs:
+    """The brick engine's per-rank functions as `sharded.RankGraphs`. The
+    brick engine has no migration branch, so nothing keys its graphs and
+    no body counts one."""
+    return RankGraphs(
         comm, lambda: (),
-        lambda pos, vel, valid, pid, cell, active, with_click, tally: _device_step3d(
+        lambda pos, vel, valid, pid, cell, active, with_click, tally: _local_step3d(
             pos, vel, valid, pid, cell, active, cfg, mcfg, comm, backend,
             with_click=with_click),
         lambda *state: _device_build3d(*state, cfg, mcfg, comm),
@@ -409,10 +423,11 @@ def make_mesh3d_step(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
     and `pallas`) runs the rank, density and force kernels on each rank;
     `cell_list` the plain-torch tile passes.
 
-    On a (1, 1, 1) grid the step is one CUDA-graph replay on a card, one
-    graph without a click and one with one (`sharded.OneRank`); a rank
-    with peers runs the eager step, as `sharded.make_sharded_step` says
-    why. `step.eager` is the eager step of one rank."""
+    On a card the step is CUDA-graph replays, one chain without a click
+    and one with one (`sharded.RankGraphs`): one replay on a (1, 1, 1)
+    grid, segments between the exchanges and the reduce with peers (the
+    module docstring). `step.eager` is the same step as eager
+    operations."""
     backend = _prepare3d(cfg, mcfg, comm, backend)
 
     def eager(state: DistState, click_px=None, click_active=None):
@@ -429,9 +444,7 @@ def make_mesh3d_step(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
         )
         return DistState(x, v, valid, pid), aux
 
-    if comm.size > 1:
-        return eager
-    step = _one_rank3d(cfg, mcfg, comm, backend).step(cfg)
+    step = _rank_graphs3d(cfg, mcfg, comm, backend).step(cfg)
     step.eager = eager
     return step
 
@@ -448,10 +461,10 @@ def make_mesh3d_timed(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
           click, as the reference's simulateAndTime runs the step
 
     The counters each stage returns are already reduced over the ranks.
-    Returns (build, update): on a (1, 1, 1) grid one CUDA-graph replay each
-    on a card, what `build` returns the graph's own until the next `build`
-    and `update` taking it; a rank with peers runs eager stages.
-    `build.eager` and `update.eager` are the eager stages of one rank."""
+    Returns (build, update): CUDA-graph replays each on a card (one on a
+    (1, 1, 1) grid, segments with peers), what `build` returns the graph's
+    own until the next `build` and `update` taking it. `build.eager` and
+    `update.eager` are the eager stages."""
     backend = _prepare3d(cfg, mcfg, comm, backend)
 
     def build_eager(state: DistState):
@@ -474,9 +487,7 @@ def make_mesh3d_timed(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm,
         )
         return DistState(x, v, valid, pid), aux
 
-    if comm.size > 1:
-        return build_eager, update_eager
-    build, update = _one_rank3d(cfg, mcfg, comm, backend).timed()
+    build, update = _rank_graphs3d(cfg, mcfg, comm, backend).timed()
     build.eager, update.eager = build_eager, update_eager
     return build, update
 
@@ -486,11 +497,11 @@ def make_mesh3d_run(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, steps: 
     """`run(state) -> (DistState, DistAux)`: `steps` brick timesteps
     without a click, the production loop (tpusph `dist/mesh3d.py:672-730`),
     counters folded over the chain on the device as
-    `sharded.make_sharded_run` folds them. On a (1, 1, 1) grid the chain is
-    one CUDA-graph replay on a card, as tpusph's is one `lax.scan`
-    dispatch; a rank with peers runs a Python loop of eager steps, which
-    read nothing back between the steps. `run.eager` is that loop on one
-    rank."""
+    `sharded.make_sharded_run` folds them. On a card (`RankGraphs.run`) the
+    chain is one CUDA-graph replay on a (1, 1, 1) grid, as tpusph's is one
+    `lax.scan` dispatch; with peers one step's segments replayed `steps`
+    times, the counters reduced after the last. `run.eager` is a Python
+    loop of eager steps, which read nothing back between the steps."""
     backend = _prepare3d(cfg, mcfg, comm, backend)
 
     def eager(state: DistState):
@@ -505,9 +516,7 @@ def make_mesh3d_run(cfg: SimConfig, mcfg: Mesh3DConfig, comm: BrickComm, steps: 
         aux = DistAux(*auxs[:, :5].sum(dim=0), auxs[-1, 5], *auxs[:, 6:].amax(dim=0))
         return DistState(*fields), aux
 
-    if comm.size > 1:
-        return eager
-    run = _one_rank3d(cfg, mcfg, comm, backend).run(steps)
+    run = _rank_graphs3d(cfg, mcfg, comm, backend).run(steps)
     run.eager = eager
     return run
 

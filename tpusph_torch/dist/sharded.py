@@ -42,11 +42,11 @@ mesh collectives stood. Per step and rank:
      rotation of the first n_lo + n_kept rows that `_skip_order` gives
      without sorting, bit for bit every row the sort gives. The
      exchange still sends its fixed-size buffers, their lanes masked.
-     The eager step (a rank with peers) has no device-side branch, so
-     the choice is a host read of whether this rank has crossers, one
+     The eager step (`.eager`) has no device-side branch, so the
+     choice is a host read of whether this rank has crossers, one
      wait a step, just before the migration exchange (which on a
-     host-staged group waits on the card anyway). A graphed step (one
-     rank) reads nothing: where torch captures `torch.cond` as a
+     host-staged group waits on the card anyway). A graphed step
+     reads nothing: where torch captures `torch.cond` as a
      conditional node (`graphs.CONDITIONAL_NODES`) it branches on the
      device's count of crossers as tpusph's `lax.cond` does; where it
      does not (torch 2.11) the graph takes the category sort every step,
@@ -66,11 +66,15 @@ waits on the card nowhere but in the exchange of a host-staged group, in
 the skip's decision (§6) and where the caller reads the counters.
 
 Dispatches: tpusph jits each step, timed phase and production chain as
-one dispatch. Here, on a line of one rank (`comm.size == 1`), each is one
-CUDA-graph replay on a card (`OneRank`, `engine/graphs.py`), its body
-run under the capture guard on the CPU; a rank with peers runs them as
-eager operations, since a gloo exchange is staged through the host and
-a graph of NCCL's needs a second card.
+one dispatch, its collectives inside. Here each is CUDA-graph replays on
+a card (`RankGraphs`, `engine/graphs.py::SegmentedLoop`), its body run
+under the capture guard on the CPU. On a line of one rank (`comm.size ==
+1`) that is one replay. A rank with peers replays segments between the
+transports, which cannot sit in a graph (a gloo exchange is a copy to the
+host, a send and a receive, a copy back): a step is three segments, split
+at the halo exchange and the migration exchange and ending at the reduce
+of the counters. An NCCL group takes the same segments; a graph with its
+collectives inside needs one card a rank.
 """
 
 from __future__ import annotations
@@ -84,8 +88,8 @@ import numpy as np
 import torch
 
 from tpusph_torch.core.config import SimConfig
-from tpusph_torch.dist.comm import SlabComm
-from tpusph_torch.engine.graphs import CONDITIONAL_NODES, GraphedLoop
+from tpusph_torch.dist.comm import SlabComm, int32s
+from tpusph_torch.engine.graphs import CONDITIONAL_NODES, SegmentedLoop
 from tpusph_torch.engine.step import (
     _density_pass_sorted,
     _force_pass_sorted,
@@ -593,24 +597,34 @@ def _final_hop(nrows, tag, live, mig_dn, mig_up, c_dev: int, m_cap: int, line, o
     return x, v, valid_new, pid_new, ovf_mig + dev_overflow, torch.maximum(n_dn, n_up)
 
 
-def _device_step(
+def _local_step(
     pos, vel, valid, pid, click_cell, click_active, cfg: SimConfig, dcfg: DistConfig,
     comm: SlabComm, backend: str = "kernels", with_click: bool = True,
     tally: list | None = None,
 ):
     """One timestep on one rank's slab: `_device_build` (sort and halo
-    exchange), then `_device_update` (kernels, integration, migration),
-    the counters reduced over the ranks into a DistAux. `tally` as in
-    `_device_update`."""
+    exchange), then `_device_update` (kernels, integration, migration).
+    Returns (x, v, valid, pid, sums, maxes): the counters of this rank, not
+    yet reduced, as `comm.reduce` takes them (sums in DistAux's order, then
+    the peaks). `tally` as in `_device_update`."""
     *inter, halo_ovf, oob, halo_send = _device_build(pos, vel, valid, pid, cfg, dcfg, comm)
     x, v, valid_new, pid_new, (ovf_w, mig_ovf, misrouted, n_valid, mig_send) = _device_update(
         *inter, click_cell, click_active, cfg, dcfg, comm, backend, with_click=with_click,
         tally=tally,
     )
-    sums, maxes = comm.reduce(
-        [halo_ovf, mig_ovf, ovf_w, oob, misrouted, n_valid], [n_valid, halo_send, mig_send]
-    )
-    return x, v, valid_new, pid_new, DistAux(*sums, *maxes)
+    return (x, v, valid_new, pid_new, [halo_ovf, mig_ovf, ovf_w, oob, misrouted, n_valid],
+            [n_valid, halo_send, mig_send])
+
+
+def _device_step(
+    pos, vel, valid, pid, click_cell, click_active, cfg: SimConfig, dcfg: DistConfig,
+    comm: SlabComm, backend: str = "kernels", with_click: bool = True,
+):
+    """`_local_step`, the counters reduced over the ranks into a DistAux."""
+    *rows, sums, maxes = _local_step(pos, vel, valid, pid, click_cell, click_active, cfg, dcfg,
+                                     comm, backend, with_click)
+    sums, maxes = comm.reduce(sums, maxes)
+    return (*rows, DistAux(*sums, *maxes))
 
 
 def _prepare(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm, backend: str) -> str:
@@ -644,7 +658,7 @@ def _check_device(state: DistState, comm: SlabComm) -> None:
         raise ValueError(f"state is on {state.position.device}, the rank's device is {comm.device}")
 
 
-# -------------------------------------------- a rank with no peer, as graphs
+# ----------------------------------------------------- a rank's graphs
 
 _pending_branches: dict = {}  # device → int32[2] (sorts, skips) of replays not yet read
 
@@ -662,7 +676,7 @@ def _count_branches(branches: torch.Tensor) -> None:
     elif dev in _pending_branches:
         _pending_branches[dev] += branches
     else:
-        _pending_branches[dev] = branches
+        _pending_branches[dev] = branches.clone()  # not a graph's own tensor
 
 
 def migration_counts() -> tuple[int, int]:
@@ -677,62 +691,90 @@ def migration_counts() -> tuple[int, int]:
     return migration_sorts, migration_skips
 
 
-def _branches(tally: list, device) -> torch.Tensor:
+def _branches(tally: list):
     """int32[2] (sorts, skips) summed over a graphed body's migration
-    steps; zeros where it has none."""
+    steps; None where it has none."""
     if not tally:
-        return torch.zeros(2, dtype=torch.int32, device=device)
+        return None
+    if len(tally) == 1:
+        return tally[0]
     return torch.stack(tally).sum(0, dtype=torch.int32)
 
 
-class OneRank:
-    """The graphed entry points of a line or grid of one rank (`comm.size
-    == 1`, elided or whole machinery): each is one CUDA-graph replay on a
-    card (`engine/graphs.py`), its body run under the capture guard on the
-    CPU. Graphs are keyed by the static choices `statics()` reads from the
-    environment at each call, as the eager functions read them at each
-    step. The engine's per-rank functions: `device_step(pos, vel, valid,
-    pid, cell, active, with_click, tally)`, `device_build(pos, vel, valid,
-    pid)` and `device_update(*rows, with_click, tally)` (`tally` as in
-    `_device_update`)."""
+def _fold(acc, sums, maxes, device) -> torch.Tensor:
+    """A production run's counters of this rank after one more step, in
+    DistAux's order before the reduction: the five overflow sums summed,
+    the particle count the last step's, the three peaks maxed. `acc` None:
+    the first step's."""
+    new = int32s([*sums, *maxes], device)
+    if acc is None:
+        return new
+    return torch.cat([acc[:5] + new[:5], new[5:6], torch.maximum(acc[6:], new[6:])])
 
-    def __init__(self, comm, statics, device_step, device_build, device_update):
+
+def _reduce_folded(reduce, acc) -> list:
+    """The run's DistAux fields from the folded counters, reduced over the
+    ranks once: five int64 sums (the eager run's fold sums int32 counters
+    into int64) and four int32."""
+    sums, maxes = reduce(acc[:6].unbind(), acc[6:].unbind())
+    return [sums[:5].to(torch.int64), torch.cat([sums[5:], maxes])]
+
+
+class RankGraphs:
+    """The graphed entry points of one rank of a line or grid, tpusph's
+    jitted dispatches: each a `SegmentedLoop` (`engine/graphs.py`), its
+    body run under the capture guard on the CPU. On a rank with no peer a
+    body is one CUDA-graph replay on a card; on a rank with peers a chain
+    of replays split at each exchange and reduce, the transports between
+    them. Graphs are keyed by the static choices `statics()` reads from the
+    environment at each call, as the eager functions read them at each
+    step. The engine's per-rank functions: `local_step(pos, vel, valid,
+    pid, cell, active, with_click, tally)` (`_local_step`'s contract),
+    `device_build(pos, vel, valid, pid)` and `device_update(*rows,
+    with_click, tally)` (`tally` as in `_device_update`)."""
+
+    def __init__(self, comm, statics, local_step, device_build, device_update):
         self.comm = comm
         self.statics = statics
-        self.device_step = device_step
+        self.local_step = local_step
         self.device_build = device_build
         self.device_update = device_update
         self.loops: dict = {}
-        self.migrates: dict = {}  # key → whether its body migrates
         self.one = torch.ones((), dtype=torch.int32)
 
-    def _call(self, key, body, inputs=None, **kw) -> list:
-        """The outputs of the loop of `key` (made from `body(inputs, tally)`
-        at its first call), its migration branches counted."""
+    def _loop(self, key, body, **kw) -> SegmentedLoop:
+        """The loop of `key`, made from `body(inputs, tally)` at its first
+        call; its last output is its migration branches (None: it has
+        none)."""
         if key not in self.loops:
-            # no reference back to self: a communicator must sit in no cycle
-            migrates, device = self.migrates, self.comm.device
-
             def counted(inputs):
                 tally = []
                 out = body(inputs, tally)
-                migrates[key] = bool(tally)
-                return [*out, _branches(tally, device)]
+                return [*out, _branches(tally)]
 
-            self.loops[key] = GraphedLoop(counted, device, **kw)
-        *out, branches = self.loops[key](inputs)
-        if self.migrates[key]:
+            self.loops[key] = SegmentedLoop(counted, self.comm.device, **kw)
+        return self.loops[key]
+
+    def structures(self) -> dict:
+        """{key: the chain its loop's first call found} (`SegmentedLoop.structure`)."""
+        return {key: loop.structure for key, loop in self.loops.items()}
+
+    def _call(self, key, body, inputs=None, **kw) -> list:
+        """The outputs of the loop of `key`, its migration branches
+        counted."""
+        *out, branches = self._loop(key, body, **kw)(inputs)
+        if branches is not None:
             _count_branches(branches)
         return out
 
     def step(self, cfg: SimConfig):
-        device_step = self.device_step
+        local_step, reduce = self.local_step, self.comm.reduce
 
         def body(inputs, tally, clicked):
             pos, vel, valid, pid, *click = inputs
             cell, active = click if clicked else (None, False)
-            *rows, aux = device_step(pos, vel, valid, pid, cell, active, clicked, tally)
-            return [*rows, torch.stack(tuple(aux))]
+            *rows, sums, maxes = local_step(pos, vel, valid, pid, cell, active, clicked, tally)
+            return [*rows, *reduce(sums, maxes)]  # a step with peers ends at the reduce
 
         def step(state: DistState, click_px=None, click_active=None):
             _check_device(state, self.comm)
@@ -743,9 +785,10 @@ class OneRank:
                 cell = torch.tensor(click_cell_from_px(px, py, cfg), dtype=torch.int32)
                 inputs += [cell, self.one]
             key = ("step", clicked, *self.statics())
-            *rows, aux = self._call(key, functools.partial(body, clicked=clicked), inputs)
-            return DistState(*rows), DistAux(*aux.unbind())
+            *rows, sums, maxes = self._call(key, functools.partial(body, clicked=clicked), inputs)
+            return DistState(*rows), DistAux(*sums.unbind(), *maxes.unbind())
 
+        step.graphs = self
         return step
 
     def timed(self):
@@ -754,27 +797,29 @@ class OneRank:
 
         def build_body(inputs, tally):
             *inter, halo_ovf, oob, halo_send = device_build(*inputs)
-            (halo_ovf, oob), (halo_send,) = reduce([halo_ovf, oob], [halo_send])
-            return [*inter, torch.stack([halo_ovf, oob, halo_send])]
+            return [*inter, *reduce([halo_ovf, oob], [halo_send])]
 
         def update_body(inputs, tally):
-            *inter, (halo_ovf, oob, halo_send) = inputs[len(DistState._fields):-1]
+            # the build's inputs, then its outputs: rows, sums, maxes, branches
+            *inter, (halo_ovf, oob), (halo_send,), _ = inputs[len(DistState._fields):]
             x, v, valid, pid, (ovf_w, mig_ovf, misrouted, n_valid, mig_send) = device_update(
                 *inter, False, tally)
             (ovf_w, mig_ovf, misrouted, total), (max_dev, mig_send) = reduce(
                 [ovf_w, mig_ovf, misrouted, n_valid], [n_valid, mig_send])
             aux = DistAux(halo_ovf, mig_ovf, ovf_w, oob, misrouted, total, max_dev, halo_send,
                           mig_send)
-            return [x, v, valid, pid, torch.stack(tuple(aux))]
+            # a host-staged reduce run eagerly (the warm-up) leaves its sums on
+            # the host; inside a graph they are the device's receive tensors
+            return [x, v, valid, pid, torch.stack([a.to(x.device) for a in aux])]
 
         handed = {}  # the rows the last build handed out
 
         def build(state: DistState):
             _check_device(state, self.comm)
             key = ("build", *self.statics())
-            *inter, counters = self._call(key, build_body, list(state), clone=False)
+            *inter, sums, maxes = self._call(key, build_body, list(state), clone=False)
             handed["inter"], handed["key"] = tuple(inter), key
-            return handed["inter"], *counters.unbind()
+            return handed["inter"], *sums.unbind(), *maxes.unbind()
 
         def update(inter, halo_ovf, oob, halo_send):
             if inter is not handed.get("inter"):
@@ -784,35 +829,75 @@ class OneRank:
                                                after=self.loops[handed["key"]])
             return DistState(x, v, valid, pid), DistAux(*aux.unbind())
 
+        build.graphs = update.graphs = self
         return build, update
 
     def run(self, steps: int):
-        device_step = self.device_step
+        """`steps` steps without a click, the counters folded on the card
+        each step (`_fold`) and reduced once after the last. With no peer
+        the whole chain is one graph (`lax.scan`'s one dispatch). With peers
+        one step's chain is replayed `steps` times, the state and the
+        folded counters carried in its own input tensors, then the
+        reduction: a chain unrolled over the steps would be hundreds of
+        graphs and a capture as long as the run."""
+        local_step, reduce, device = self.local_step, self.comm.reduce, self.comm.device
 
-        def body(fields, tally):
-            auxs = []
-            for _ in range(steps):
-                *fields, aux = device_step(*fields, None, False, False, tally)
-                auxs.append(torch.stack(aux))
-            auxs = torch.stack(auxs)  # [steps, 9], DistAux's order
-            # the eager run's fold, dtypes included: sums (int64), the rest
-            return [*fields, auxs[:, :5].sum(dim=0),
-                    torch.cat([auxs[-1, 5:6], auxs[:, 6:].amax(dim=0)])]
+        def fields(outputs):
+            s5, rest = outputs
+            return DistAux(*s5.unbind(), *rest.unbind())
+
+        if self.comm.size == 1:
+            def chain(inputs, tally):
+                state, acc = inputs, None
+                for _ in range(steps):
+                    *state, sums, maxes = local_step(*state, None, False, False, tally)
+                    acc = _fold(acc, sums, maxes, device)
+                return [*state, *_reduce_folded(reduce, acc)]
+
+            def run(state: DistState):
+                _check_device(state, self.comm)
+                *rows, s5, rest = self._call(("run", *self.statics()), chain, list(state))
+                return DistState(*rows), fields((s5, rest))
+
+            run.graphs = self
+            return run
+
+        def one_step(inputs, tally):
+            *state, acc = inputs
+            *new, sums, maxes = local_step(*state, None, False, False, tally)
+            acc.copy_(_fold(acc, sums, maxes, device))
+            for dst, src in zip(state, new):
+                dst.copy_(src)
+            return []
+
+        def fold(inputs, tally):
+            return _reduce_folded(reduce, inputs[len(DistState._fields)])
 
         def run(state: DistState):
             _check_device(state, self.comm)
-            *rows, sums, rest = self._call(("run", *self.statics()), body, list(state))
-            return DistState(*rows), DistAux(*sums.unbind(), *rest.unbind())
+            key = ("run", *self.statics())
+            loop = self._loop(key, one_step, clone=False)
+            # the body writes its inputs: the caller's state is copied
+            # first (the card copies it into the graph's own tensors)
+            start = [t.clone() for t in state]
+            start.append(torch.zeros(len(DistAux._fields), dtype=torch.int32, device=device))
+            for k in range(steps):
+                (branches,) = loop(start if k == 0 else loop.inputs)
+                if branches is not None:
+                    _count_branches(branches)
+            rows = [t.clone() for t in loop.inputs[:len(DistState._fields)]]
+            return DistState(*rows), fields(self._call(("fold", *key[1:]), fold, after=loop))
 
+        run.graphs = self
         return run
 
 
-def _one_rank(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm, backend: str) -> OneRank:
-    """The z-slab engine's per-rank functions on a line of one rank as
-    `OneRank` graphs, keyed by the machinery switch and the skip's."""
-    return OneRank(
+def _rank_graphs(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm, backend: str) -> RankGraphs:
+    """The z-slab engine's per-rank functions as `RankGraphs`, keyed by the
+    machinery switch and the skip's."""
+    return RankGraphs(
         comm, lambda: (_elide_single(dcfg), _force_migsort()),
-        lambda pos, vel, valid, pid, cell, active, with_click, tally: _device_step(
+        lambda pos, vel, valid, pid, cell, active, with_click, tally: _local_step(
             pos, vel, valid, pid, cell, active, cfg, dcfg, comm, backend,
             with_click=with_click, tally=tally),
         lambda *state: _device_build(*state, cfg, dcfg, comm),
@@ -829,14 +914,13 @@ def make_sharded_step(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm, backend:
     `pallas`) runs the rank, density and force kernels on each rank;
     `cell_list` the plain-torch tile passes.
 
-    On a line of one rank (`comm.size == 1`) the step is one CUDA-graph
-    replay on a card, one graph for the step without a click and one for
-    the step with one, whose cell and gain go in as device int32 tensors;
-    on the CPU the same bodies run under the capture guard (`OneRank`). A
-    rank with peers runs the eager step: a gloo exchange is staged through
-    the host and cannot sit in a graph, and a graph of NCCL's needs a
-    second card, which the machine lacks. `step.eager` is the eager step
-    of one rank."""
+    On a card the step is CUDA-graph replays (`RankGraphs`), one chain for
+    the step without a click and one for the step with one, whose cell and
+    gain go in as device int32 tensors: on a line of one rank one replay;
+    with peers three segments, split at the halo exchange and the
+    migration exchange and ending at the reduce, the transports between
+    them. On the CPU the same bodies run under the capture guard.
+    `step.eager` is the same step as eager operations."""
     backend = _prepare(cfg, dcfg, comm, backend)
 
     def eager(state: DistState, click_px=None, click_active=None):
@@ -855,9 +939,7 @@ def make_sharded_step(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm, backend:
         )
         return DistState(x, v, valid, pid), aux
 
-    if comm.size > 1:
-        return eager
-    step = _one_rank(cfg, dcfg, comm, backend).step(cfg)
+    step = _rank_graphs(cfg, dcfg, comm, backend).step(cfg)
     step.eager = eager
     return step
 
@@ -876,12 +958,11 @@ def make_sharded_timed(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm, backend
     so that a driver can fence each phase. The counters each stage returns
     are already reduced over the ranks. Returns (build, update).
 
-    On a line of one rank each stage is one CUDA-graph replay on a card
-    (`OneRank`): what `build` returns is the graph's own tensors, valid
-    until the next `build`, and `update` takes them and reads them in
-    place. A rank with peers
-    runs eager stages (see `make_sharded_step`). `build.eager` and
-    `update.eager` are the eager stages of one rank."""
+    On a card each stage is CUDA-graph replays (`RankGraphs`; one replay
+    on a line of one rank, segments between the transports with peers):
+    what `build` returns is the graph's own tensors, valid until the next
+    `build`, and `update` takes them and reads them in place.
+    `build.eager` and `update.eager` are the eager stages."""
     backend = _prepare(cfg, dcfg, comm, backend)
 
     def build_eager(state: DistState):
@@ -904,9 +985,7 @@ def make_sharded_timed(cfg: SimConfig, dcfg: DistConfig, comm: SlabComm, backend
         )
         return DistState(x, v, valid, pid), aux
 
-    if comm.size > 1:
-        return build_eager, update_eager
-    build, update = _one_rank(cfg, dcfg, comm, backend).timed()
+    build, update = _rank_graphs(cfg, dcfg, comm, backend).timed()
     build.eager, update.eager = build_eager, update_eager
     return build, update
 
@@ -920,10 +999,11 @@ def make_sharded_run(
     chain, `num_particles` is the last step's, the three peaks are maxed,
     all on the device; nothing is read back between the steps.
 
-    On a line of one rank the whole chain is one CUDA-graph replay on a
-    card (`OneRank`), as tpusph's is one dispatch of a `lax.scan`. A rank
-    with peers runs a Python loop of eager steps (see
-    `make_sharded_step`). `run.eager` is that loop on one rank."""
+    On a card (`RankGraphs.run`): on a line of one rank the whole chain is
+    one CUDA-graph replay, as tpusph's is one dispatch of a `lax.scan`;
+    with peers one step's segments are replayed `steps` times, the
+    counters folded on the card and reduced once after the last.
+    `run.eager` is a Python loop of eager steps."""
     backend = _prepare(cfg, dcfg, comm, backend)
 
     def eager(state: DistState):
@@ -938,9 +1018,7 @@ def make_sharded_run(
         aux = DistAux(*auxs[:, :5].sum(dim=0), auxs[-1, 5], *auxs[:, 6:].amax(dim=0))
         return DistState(*fields), aux
 
-    if comm.size > 1:
-        return eager
-    run = _one_rank(cfg, dcfg, comm, backend).run(steps)
+    run = _rank_graphs(cfg, dcfg, comm, backend).run(steps)
     run.eager = eager
     return run
 

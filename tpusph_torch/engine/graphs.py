@@ -35,8 +35,24 @@ stay the number of launches the card ran.
 tensors, run under the guard on the CPU and as a replay on a card. Its
 `after=` form reads another loop's inputs and outputs where that loop's
 last call left them, so a timed step's two phases are two replays with no
-copy between them. `captures` counts the graphs made (on the CPU, the
+copy between them. `captures` counts the loops captured (on the CPU, the
 first guarded call of each loop), so a caller can see a re-capture.
+
+`SegmentedLoop` is a `GraphedLoop` whose body talks to other ranks: a
+sharded step of a rank with peers. A transport between ranks (a gloo
+exchange is a copy to the host, a send and a receive, a copy back) cannot
+sit in a graph, so the body is captured as a chain of graphs, one segment
+between two transports. A communicator hands each transport to `cross`;
+inside a segmented body that call is a boundary: the open segment ends,
+the transport is recorded with the tensors it was handed (static send
+tensors, the graph's own), and the body gets static receive tensors of
+the shapes the call promises, which each replay fills. A replay runs
+segment, transport, segment, ... in capture order: the segments share one
+memory pool, and a tensor that crosses a boundary as a local of the body
+keeps its address. A segment begins at the body's first tensor operation
+after a boundary, so a body that ends at a transport has no empty segment
+behind it. On the CPU the same body runs under the guard, its transports
+let through, and the boundaries are counted the same way (`structure`).
 """
 
 from __future__ import annotations
@@ -77,11 +93,30 @@ class HostReadError(RuntimeError):
     """A graphed body read a tensor on the host."""
 
 
+_segmenting = None  # the SegmentedLoop whose body runs now (its capture; every CPU call)
+_crossing = 0  # transports running inside a segmented body now (on the CPU)
+
+
 class _NoHostReads(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
-        if func in _READS and not in_plain_version():
-            raise HostReadError(f"{_READS[func]} of a tensor inside a graphed body")
+        if not _crossing:
+            if func in _READS and not in_plain_version():
+                raise HostReadError(f"{_READS[func]} of a tensor inside a graphed body")
+            if _segmenting is not None and _segmenting._pending:
+                _segmenting._begin()
         return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def _sync_debug(mode):
+    """torch.cuda's sync debug mode `mode` inside the block ("error": a
+    synchronising call raises)."""
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
 
 
 @contextlib.contextmanager
@@ -89,15 +124,8 @@ def no_host_reads(device: torch.device):
     """The capture guard: a host read of a tensor raises `HostReadError`;
     on a card a synchronising call raises too (sync debug mode "error")."""
     cuda = torch.device(device).type == "cuda"
-    if cuda:
-        previous = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        with _NoHostReads():
-            yield
-    finally:
-        if cuda:
-            torch.cuda.set_sync_debug_mode(previous)
+    with _sync_debug("error") if cuda else contextlib.nullcontext(), _NoHostReads():
+        yield
 
 
 def launch_counts() -> dict:
@@ -188,24 +216,191 @@ class GraphedLoop:
         if self.device.type != "cuda":
             if self.outputs is None:
                 captures += 1
-            with no_host_reads(self.device):
-                self.outputs = self.fn(list(inputs))
             self.inputs = inputs
+            self.outputs = self._run(list(inputs))
             return self.outputs
-        if self.graph is None:
+        if not self._captured():
             self.inputs = (list(inputs) if self.after is not None
                            else [t.to(self.device, copy=True, non_blocking=True) for t in inputs])
-            self.graph, self.outputs = capture(lambda: self.fn(self.inputs), self.device)
-        elif self.after is None:
+            self._capture()
+        if self.after is None:  # the warm-up of a body that writes its inputs wrote them
             for dst, src in zip(self.inputs, inputs):
                 if dst is not src:
                     dst.copy_(src, non_blocking=True)
-        previous = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            self.graph.replay()
-        finally:
-            torch.cuda.set_sync_debug_mode(previous)
+        self._replay()
         if not self.clone:
             return list(self.outputs)
         return [t.clone() if torch.is_tensor(t) else t for t in self.outputs]
+
+    def _run(self, inputs: list) -> list:
+        with no_host_reads(self.device):
+            return self.fn(inputs)
+
+    def _captured(self) -> bool:
+        return self.graph is not None
+
+    def _capture(self) -> None:
+        self.graph, self.outputs = capture(lambda: self.fn(self.inputs), self.device)
+
+    def _replay(self) -> None:
+        with _sync_debug("error"):
+            self.graph.replay()
+
+
+def cross(kind: str, transport, args, like):
+    """`transport(*args)`: a communicator's move of data between ranks
+    (`kind` "exchange", "reduce" or "gather"). Inside a segmented body it is
+    a boundary of that loop (module docstring); `like` holds tensors shaped
+    as what `transport` returns, in its nesting of lists."""
+    if _segmenting is None:
+        return transport(*args)
+    return _segmenting._boundary(kind, transport, args, like)
+
+
+def _leaves(tree) -> list:
+    """The tensors of nested lists and tuples, depth first."""
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
+
+
+def _empty_like(tree):
+    """Fresh tensors shaped as the leaves of `tree`, in its nesting (lists)."""
+    if isinstance(tree, (list, tuple)):
+        return [_empty_like(sub) for sub in tree]
+    return torch.empty_like(tree)
+
+
+class _Transport:
+    """A boundary of a captured body: `fn(*args)` on its static send
+    tensors, what it returns copied into the static receive tensors."""
+
+    def __init__(self, fn, args, receives):
+        self.fn, self.args, self.receives = fn, args, receives
+
+    def run(self) -> None:
+        for dst, src in zip(_leaves(self.receives), _leaves(self.fn(*self.args))):
+            dst.copy_(src, non_blocking=True)
+
+
+class SegmentedLoop(GraphedLoop):
+    """A `GraphedLoop` whose body may move data between ranks (`cross`):
+    on a card a chain of CUDA graphs split at each transport (module
+    docstring), captured at the first call after a warm-up call with the
+    real transports, and replayed segment, transport, segment, ...; sync
+    debug mode "error" holds around each segment's replay and not around a
+    transport (gloo copies to the host by design). On the CPU the body runs
+    under the guard, its transports let through. A body with no transport
+    is one graph. There is no eager fallback: a capture that fails raises.
+
+    `structure`: the chain as the first call found it, "segment",
+    "exchange", "reduce" or "gather" in order, on both devices. `launches`:
+    each segment's launches a replay (a card's)."""
+
+    def __init__(self, fn, device, clone: bool = True, after: GraphedLoop | None = None):
+        super().__init__(fn, device, clone, after)
+        self.chain: list | None = None  # CapturedGraph and _Transport, in replay order
+        self.structure: list | None = None
+        self._recording = self._pending = False
+        self._open = None  # (graph, launch counts at its begin) of the segment being captured
+        self._pool = None
+
+    @property
+    def launches(self) -> list:
+        return [item.launches for item in self.chain if isinstance(item, CapturedGraph)]
+
+    def _captured(self) -> bool:
+        return self.chain is not None
+
+    def _run(self, inputs: list) -> list:
+        return self._segmented(inputs, recording=self.structure is None)
+
+    def _segmented(self, inputs: list, recording: bool) -> list:
+        """`fn(inputs)` under the guard with this loop's boundaries."""
+        global _segmenting
+        if recording:
+            self.structure = []
+        self._recording, self._pending = recording, True
+        _segmenting = self
+        try:
+            with no_host_reads(self.device):
+                out = self.fn(inputs)
+                self._end()
+            return out
+        finally:
+            _segmenting = None
+            if self._open is not None:  # the body failed inside a segment
+                graph, self._open = self._open[0], None
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+
+    def _capture(self) -> None:
+        global captures
+        from tpusph_torch.utils import cuda_build
+
+        cuda_build.library()  # nvcc and the ctypes load never run inside capture
+        warm_mode, capture_mode = _control_flow_modes()
+        compute = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(compute)
+        with torch.cuda.stream(side):
+            with warm_mode:
+                self.fn(self.inputs)
+            self.chain, self._pool = [], torch.cuda.graph_pool_handle()
+            try:
+                with capture_mode:
+                    self.outputs = self._segmented(self.inputs, recording=True)
+            except BaseException:
+                self.chain = None
+                raise
+        compute.wait_stream(side)
+        captures += 1
+
+    def _begin(self) -> None:
+        """Open a segment: on a card begin its capture into the loop's pool."""
+        self._pending = False
+        if self._recording:
+            self.structure.append("segment")
+        if self.device.type == "cuda":
+            graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with _sync_debug("default"):  # the guard is for the body, not the capture's calls
+                graph.capture_begin(pool=self._pool)
+            self._open = (graph, before)
+
+    def _end(self) -> None:
+        """Close the open segment's capture, if any, and chain it."""
+        if self._open is None:
+            return
+        (graph, before), self._open = self._open, None
+        with _sync_debug("default"):
+            graph.capture_end()
+        per_replay = {fn: n - before[fn] for fn, n in launch_counts().items()}
+        for fn, n in per_replay.items():
+            fn.launches -= n  # recorded, not run
+        self.chain.append(CapturedGraph(graph, per_replay))
+
+    def _boundary(self, kind: str, transport, args, like):
+        global _crossing
+        _crossing += 1
+        try:
+            if self.device.type == "cuda":
+                self._end()
+                got = _empty_like(like)
+                self.chain.append(_Transport(transport, args, got))
+            else:
+                got = transport(*args)
+        finally:
+            _crossing -= 1
+        if self._recording:
+            self.structure.append(kind)
+        self._pending = True
+        return got
+
+    def _replay(self) -> None:
+        for item in self.chain:
+            if isinstance(item, CapturedGraph):
+                with _sync_debug("error"):
+                    item.replay()
+            else:
+                item.run()

@@ -9,7 +9,7 @@ halo buffers of `halo_capacity` rows a side, default 16,384, the splice
 and the migration sort: what a middle rank pays, less the exchange). For
 each, and for each form of the run (`make_sharded_run`: one CUDA-graph
 replay of STEPS steps on a line of one rank, and `run.eager`, the Python
-loop of eager steps that a rank with peers runs): timesteps/s (wall time
+loop of eager steps): timesteps/s (wall time
 up to a synchronize, the median of 5 runs from grid init), then one
 profiled run: the device's busy share, device ms a step by kernel and
 host ms a step by operator. Prints the card's name and power limit with
