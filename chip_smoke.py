@@ -186,6 +186,12 @@ Phases, each of which raises on failure (exit code 1):
         rows within 0.05 below each interior face given vz = 2, so that
         they cross: 20 steps in each mode bit for bit on every rank, both
         branches taken over the ranks, 20 launches of each kernel a rank;
+        then 20 graphed steps (`make_sharded_step`, segments between the
+        exchanges, the migration's branch a conditional node, phase 16)
+        bit for bit with the eager steps on every rank, both branches
+        taken on the card over the ranks, one conditional node a step (in
+        the segment after the halo exchange), 20 launches of each kernel
+        and of `set_if` a rank;
      c. `DistSimulator` on one rank, 10 steps, `save_dist_state`,
         `load_dist_state`, 10 more steps: within 1e-5 of 20 uninterrupted
         steps;
@@ -196,9 +202,7 @@ Phases, each of which raises on failure (exit code 1):
         differ at all listed;
      e. `scripts.scaling_model` on the repo's artifacts (TORCH_DIST_BENCH*.json,
         scaling_torch/), its tables printed;
- 14. graphs: whether torch captures `torch.cond` as a conditional node
-     (if not, the error, and the graphed migration takes the category
-     sort); at 262,144 grid init, each graphed entry point against the
+ 14. graphs: at 262,144 grid init, each graphed entry point against the
      same function run eagerly on the same input (`.eager`, or the timed
      phases' bodies run eagerly), bit for bit after each of 3 calls, with
      sync debug mode "error" around the graphed calls: `make_step`,
@@ -231,7 +235,28 @@ Phases, each of which raises on failure (exit code 1):
      bench_torch.py` (its gate on), its artifact `graphed`. Phase 11c's
      `torchrun ... --mesh 1x1x2` is the command line's multi-rank run,
      which these graphs carry. Four ranks time-share one card: a check of
-     correctness, not a scaling figure.
+     correctness, not a scaling figure;
+ 16. the device branch, tpusph's `lax.cond` (`graphs.device_if`,
+     `kernels/graph_cond.py`, `csrc/graph_cond.cu` in the port's library):
+     a. `set_if` and its if node on the predicates -2, 0, 1, 5 and, in the
+        same graph replayed, 3, 1, 0, -4: the body ran exactly where the
+        plain version, pred > 0, holds; one conditional node a graph
+        (`graph_cond.node_counts`, libcuda's node types); the device
+        ms of one `set_if` and its node, 100 in one graph, with the body
+        skipped (the row's ms) and run, against the plain version's;
+     b. one slab rank through the whole machinery at 262,144 grid init,
+        `make_sharded_run(20)` graphed with the skip and with
+        TPUSPH_DIST_FORCE_MIGSORT=1, and its eager run (the host-read
+        skip): bit for bit, (sorts, skips) (0, 20), (20, 0), (0, 20); the
+        run graph's node types, one conditional node a step with the skip
+        and none with the sort; the first call's seconds (capture and
+        replay); the skip run replayed, each kernel and `set_if` launched
+        20 times (this slice's path);
+     c. the sharded bench on one rank through the whole machinery at
+        262,144 and 1,048,576 (phase 14c's protocol), graphed, the sort
+        and the skip in turns (sort, skip, skip, sort): timesteps/s, busy
+        share, (sorts, skips) (100, 0) and (0, 100), 0 and 100 conditional
+        nodes in the 100-step run graph, the runs equal bit for bit.
 The probes' bounds are their FMA (2 flops) or operation counts at 67
 TFLOP/s. Each path's kernel launch counts are set to 0 just before it and
 read just after. A wrapper counts where it launches its kernel; inside a CUDA graph
@@ -242,8 +267,10 @@ of the 100-step chain, and for rank, density and force the numbers at step
 20 with each state's under "by_step", the sharded and brick paths'
 launches and phase 13's under "dist_launches", bench_torch's timed run's under
 "bench_launches", one replay of each graphed entry point of phase 14 and
-of the four-rank steps of phase 15 under "graph_launches") and, last, one JSON line {"ok":
-true, "device": {...}}.
+of the four-rank steps of phase 15 under "graph_launches", phase 16b's
+replayed run under "branch_launches"; set_if's row with its launches in
+16b's run and its time with the body run under "body_ms") and, last, one
+JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -251,7 +278,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import importlib
 import json
 import math
 import os
@@ -299,6 +325,8 @@ GRAPH_TIERS = (262_144, 1_048_576)  # phase 14: the sharded bench's tiers
 MESH_TIMED_STEPS = 20  # phase 14: timed steps a run of the (1, 1, 1) DistSimulator
 RANK_GRAPH_STEPS = 20  # phase 15: steps a timed turn, and the run's
 GRAPH_CLICK = (400, 300)  # phase 14: the click of the graphed impulse and steps
+BRANCH_PREDS = (-2, 0, 1, 5)  # phase 16a: set_if's predicates, held against its plain version
+BRANCH_NODES = 100  # phase 16a: if nodes in the graph that times set_if
 KERNEL_STATES = (0, 20, 100)  # steps of 262,144 grid init at which phase 3 checks and times
 TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
 # H100 SXM peaks (NVIDIA's data sheet) for the bounds
@@ -1556,23 +1584,24 @@ def _skip_runs(step, start, kernels, steps: int) -> dict:
     return runs
 
 
-def _hold_bit_equal(want: list, got: list, what: str) -> None:
+def _hold_bit_equal(want: list, got: list, what: str, of: str = "the sort's") -> None:
+    require(len(want) == len(got), f"{what}: {len(got)} steps against {len(want)}")
     for k, ((a, aux_a), (b, aux_b)) in enumerate(zip(want, got)):
         require([int(x) for x in aux_a] == [int(x) for x in aux_b],
-                f"{what}, step {k}: the counters differ from the sort's")
+                f"{what}, step {k}: the counters differ from {of}")
         for x, y, field in zip(a, b, a._fields):
-            require(torch.equal(x, y), f"{what}, step {k}: {field} differs from the sort's")
+            require(torch.equal(x, y), f"{what}, step {k}: {field} differs from {of}")
 
 
 def skip_rank(comm, payload: dict) -> None:
     """One of phase 13b's ranks (a process of its own on the one card):
     random init with the rows just below each interior slab face kicked
-    up across it, `SKIP_STEPS` steps with the sort and with the skip, the
-    checks of the module docstring; writes its numbers to
-    `payload["out"]/skip<r>.json`."""
+    up across it, `SKIP_STEPS` steps with the sort and with the skip, then
+    the graphed step's, the checks of the module docstring; writes its
+    numbers to `payload["out"]/skip<r>.json`."""
     from tpusph_torch.core.config import tuned_config
     from tpusph_torch.dist import sharded
-    from tpusph_torch.kernels import fused, qrank
+    from tpusph_torch.kernels import fused, graph_cond, qrank
 
     n = payload["n"]
     cfg = tuned_config(n)
@@ -1580,8 +1609,8 @@ def skip_rank(comm, payload: dict) -> None:
     whole = np.load(payload["state"])
     whole = {k: whole[k] for k in ("position", "velocity", "valid")}
     start = sharded.distribute_state(types.SimpleNamespace(**whole), cfg, dcfg, comm)
-    # the eager step, whose skip is the host read (a graph on torch 2.11
-    # sorts every step; phase 15 holds the graphed step to this one)
+    # the eager step, whose skip is the host read; the graphed step below
+    # branches on the card
     step = sharded.make_sharded_step(cfg, dcfg, comm).eager
     step(start)  # warm-up: loads the library, fills the caches
     kernels = (qrank.rank_queries, fused.density, fused.force)
@@ -1594,12 +1623,37 @@ def skip_rank(comm, payload: dict) -> None:
     require((runs["sort"]["sorts"], runs["sort"]["skips"]) == (SKIP_STEPS, 0),
             f"rank {comm.rank}: TPUSPH_DIST_FORCE_MIGSORT=1 skipped")
     crossed = [int(aux.max_migration_send) for _, aux in runs["skip"]["states"]]
+
+    # the graphed step (segments between the exchanges; the migration's
+    # branch a conditional node), from the same start after its capture
+    graphed = sharded.make_sharded_step(cfg, dcfg, comm)
+    graphed(start)
+    counted = (*kernels, graph_cond.set_if)
+    for fn in counted:
+        fn.launches = 0
+    before = sharded.migration_counts()
+    state, steps = start, []
+    for _ in range(SKIP_STEPS):
+        state, aux = graphed(state)
+        steps.append((state, aux))
+    _hold_bit_equal(runs["skip"]["states"], steps, f"rank {comm.rank}, graphed step",
+                    "the eager step's")
+    g_sorts, g_skips = (b - a for a, b in zip(before, sharded.migration_counts()))
+    g_launches = [fn.launches for fn in counted]
+    require(g_launches == [SKIP_STEPS] * 4,
+            f"rank {comm.rank}, graphed: launches (rank, density, force, set_if) {g_launches}")
+    loop = graphed.graphs.loops[("step", False, False, False)]
+    cond_nodes = [graph_cond.node_counts(item.graph.raw_cuda_graph())["conditional"]
+                  for item in loop.chain if hasattr(item, "graph")]
+    require(sum(cond_nodes) == 1, f"rank {comm.rank}: conditional nodes a segment {cond_nodes}")
     with open(os.path.join(payload["out"], f"skip{comm.rank}.json"), "w") as f:
         json.dump({
             "rank": comm.rank, "occupancy": int(start.valid.sum()),
             "sorts": runs["skip"]["sorts"], "skips": runs["skip"]["skips"],
             "launches": runs["skip"]["launches"], "max_migration_send": crossed,
             "ms_per_step": {m: runs[m]["ms_per_step"] for m in runs},
+            "graphed": {"sorts": g_sorts, "skips": g_skips, "launches": g_launches,
+                        "structure": loop.structure, "conditional_nodes": cond_nodes},
         }, f)
 
 
@@ -1712,6 +1766,17 @@ def slice_phase(card: str, kernels, dev) -> dict:
               f"{r['skips']}, migration rows a step (most on a rank) "
               f"{r['max_migration_send']}, ms a step in turns sort, skip, skip, sort "
               f"{_turns(r['ms_per_step'])}")
+    g_sorts = sum(r["graphed"]["sorts"] for r in ranks)
+    g_skips = sum(r["graphed"]["skips"] for r in ranks)
+    require(g_sorts > 0 and g_skips > 0,
+            f"13b graphed: sorts {g_sorts}, skips {g_skips}: one branch never ran on the card")
+    launches["set_if"] = {"skip_four_ranks_graphed": [r["graphed"]["launches"][3] for r in ranks]}
+    print(f"13b graphed (the device branch, phase 16): {SKIP_STEPS} graphed steps on every rank "
+          f"equal its eager steps bit for bit; sorts {g_sorts}, skips {g_skips} on the card; "
+          f"chain {' '.join(ranks[0]['graphed']['structure'])}, conditional nodes a segment "
+          f"{ranks[0]['graphed']['conditional_nodes']}; (sorts, skips) by rank "
+          f"{[(r['graphed']['sorts'], r['graphed']['skips']) for r in ranks]}; launches "
+          f"(rank, density, force, set_if) by rank {[r['graphed']['launches'] for r in ranks]}")
 
     # c. checkpoints: DistSimulator, save after 10 steps, load, 10 more
     sim = DistSimulator(cfg, device=dev)
@@ -1806,24 +1871,14 @@ def graph_phase(card: str, kernels, timed_rate: float, dev) -> dict:
     from tpusph_torch.dist import mesh3d, sharded
     from tpusph_torch.dist.comm import BrickComm, SlabComm
     from tpusph_torch.dist.simulator import DistSimulator
-    from tpusph_torch.engine import graphs
     from tpusph_torch.engine.simulator import Simulator
     from tpusph_torch.engine.step import make_step
     from tpusph_torch.interact.impulse import make_impulse
 
     names = ("rank", "density", "force")
     cfg = tuned_config(N_MAIN)
-    if graphs.CONDITIONAL_NODES:
-        why = "torch.cond captures as a conditional node: the skip branches on the card"
-    else:
-        try:  # only to print why: the rule is graphs.CONDITIONAL_NODES
-            importlib.import_module("torch._higher_order_ops.cudagraph_conditional_nodes")
-            why = "importable, yet not found by find_spec"
-        except ImportError as e:
-            why = (f"{type(e).__name__}: {e}; a graphed migration takes the category sort "
-                   f"every step")
-    print(f"14. graphs, torch {torch.__version__}: conditional nodes {graphs.CONDITIONAL_NODES} "
-          f"({why})")
+    print(f"14. graphs, torch {torch.__version__}: a graphed migration branches on the card "
+          f"(graphs.device_if, a conditional node of the port's library; phase 16)")
     per_replay = {n: {} for n in names}
 
     def counts():
@@ -2260,6 +2315,230 @@ def multirank_phase(card: str, dev) -> dict:
           f"skips) ({art['migration_sorts']}, {art['migration_skips']}); two ranks time-share "
           f"one card; {card}")
     return launches
+
+
+def if_node_graph(pred, flag, nodes: int, dev):
+    """(graph, body): a kept, instantiated graph that zeroes `flag`, then
+    `nodes` times launches `set_if` on `pred` with an if node behind it
+    whose body (`body`, captured first in a pool of its own) writes 1 into
+    `flag`. A replay leaves 1 in `flag` exactly where the card took the
+    branch."""
+    from tpusph_torch.kernels import graph_cond
+
+    body = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body.capture_begin(pool=torch.cuda.graph_pool_handle())
+        flag.fill_(1)
+        body.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        flag.zero_()
+        for _ in range(nodes):
+            graph_cond.set_if(pred, body.raw_cuda_graph())
+    graph.instantiate()
+    return graph, body
+
+
+def replay_ms(graph, reps: int = 11) -> float:
+    """Device ms of one replay of `graph`: the median over `reps` replays
+    timed by CUDA events, after one warm replay."""
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
+def branch_phase(card: str, kernels, dev) -> dict:
+    """Phase 16 (see the module docstring). Returns set_if's row of the
+    kernels line and each kernel's launches in 16b's graphed 20-step run
+    with the skip."""
+    from tpusph_torch.core.config import tuned_config
+    from tpusph_torch.core.init import init_state
+    from tpusph_torch.dist import sharded
+    from tpusph_torch.dist.comm import SlabComm
+    from tpusph_torch.dist.simulator import DistSimulator
+    from tpusph_torch.kernels import graph_cond
+    from tpusph_torch.scripts import graph_ms
+    from tpusph_torch.utils import cuda_build
+
+    names = ("rank", "density", "force", "set_if")
+    counted = (*kernels, graph_cond.set_if)
+
+    # a. set_if and its if node against the plain version, and its time
+    lib = cuda_build.library_path()
+    print(f"16. the device branch, torch {torch.__version__}: tpusph_graph_if and the kernel "
+          f"set_if of tpusph_torch/csrc/graph_cond.cu, from the port's library "
+          f"{os.path.relpath(lib, REPO)} (torch.cuda.CUDAGraph(keep_graph=True), "
+          f"raw_cuda_graph(), instantiate()); {card}")
+    err = 0.0
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    for value in BRANCH_PREDS:
+        pred = torch.tensor(value, dtype=torch.int32, device=dev)
+        graph, _ = if_node_graph(pred, flag, 1, dev)
+        seen = []
+        for v in (value, 1 - value):  # the same graph decides again at each replay
+            pred.fill_(v)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = graph_cond.set_if_plain(pred)
+            err = max(err, float((flag - want.to(torch.int32)).abs()))
+            require(bool(flag) == bool(want), f"16a: set_if on {v}: the card took "
+                    f"{bool(flag)}, its plain version says {bool(want)}")
+            seen.append((v, bool(flag)))
+        require(graph_cond.node_counts(graph.raw_cuda_graph())["conditional"] == 1,
+                "16a: the graph does not hold one conditional node")
+        print(f"16a. set_if on {seen[0][0]} then {seen[1][0]} in one graph: the if node ran "
+              f"{seen[0][1]}, {seen[1][1]} = pred > 0 (its plain version)")
+    pred = torch.zeros((), dtype=torch.int32, device=dev)
+    timing = {}
+    for v in (0, 1):
+        pred.fill_(v)
+        graph, _ = if_node_graph(pred, flag, BRANCH_NODES, dev)
+        counts = graph_cond.node_counts(graph.raw_cuda_graph())
+        require(counts["conditional"] == BRANCH_NODES, f"16a: node counts {counts}")
+        timing[v] = replay_ms(graph) / BRANCH_NODES
+        require(bool(flag) == bool(v), "16a: the timed graph took the wrong branch")
+    plain = graph_ms(lambda: graph_cond.set_if_plain(pred))
+    row = dict(route="cuda", source="tpusph_torch/csrc/graph_cond.cu",
+               replaces="tpusph/dist/sharded.py:610", max_abs_err=err, ms=timing[0],
+               plain_ms=plain, library_ms=None,
+               at=f"one int32 predicate, {BRANCH_NODES} if nodes in one graph, body skipped")
+    row["bound_ms"], row["bound_by"] = bound(4 + 4, 1)  # read pred, set the condition
+    row["body_ms"] = timing[1]
+    print(f"16a. set_if and its if node, {BRANCH_NODES} in one graph (node types {counts}): "
+          f"{timing[0]:.5f} ms each with the body skipped, {timing[1]:.5f} with its body (one "
+          f"fill) run; plain version (pred > 0, 10 in one graph) {plain:.5f} ms; bound "
+          f"{row['bound_ms']:.2e} ms ({row['bound_by']}); {card}")
+
+    # b. one rank through the whole machinery: the graphed run's skip
+    cfg = tuned_config(N_MAIN)
+    comm = SlabComm(dev)
+    os.environ["TPUSPH_DIST_FULL_MACHINERY"] = "1"
+    try:
+        dcfg = sharded.DistConfig(1, cfg.padded_num_particles, DIST_HALO_ONE_CARD,
+                                  DIST_MIGRATION)
+        start = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
+        run = sharded.make_sharded_run(cfg, dcfg, comm, SKIP_STEPS)
+        ends, tallies, capture_s, nodes = {}, {}, {}, {}
+        for mode in ("skip", "sort", "eager"):
+            os.environ["TPUSPH_DIST_FORCE_MIGSORT"] = "1" if mode == "sort" else "0"
+            try:
+                before = sharded.migration_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ends[mode] = (run.eager if mode == "eager" else run)(start)
+                torch.cuda.synchronize()
+                capture_s[mode] = time.perf_counter() - t0
+                tallies[mode] = tuple(b - a for a, b in zip(before, sharded.migration_counts()))
+                if mode != "eager":
+                    loop = run.graphs.loops[("run", False, mode == "sort")]
+                    nodes[mode] = graph_cond.node_counts(loop.chain[0].graph.raw_cuda_graph())
+            finally:
+                os.environ.pop("TPUSPH_DIST_FORCE_MIGSORT", None)
+        for mode in ("sort", "eager"):
+            require(_bit_equal(_as_list(*ends[mode]), _as_list(*ends["skip"])),
+                    f"16b: the {mode} run ends apart from the graphed skip")
+        hold_clean(ends["skip"][1], N_MAIN, "16b")
+        require(tallies == {"skip": (0, SKIP_STEPS), "sort": (SKIP_STEPS, 0),
+                            "eager": (0, SKIP_STEPS)}, f"16b: (sorts, skips) {tallies}")
+        require(nodes["skip"]["conditional"] == SKIP_STEPS and nodes["sort"]["conditional"] == 0,
+                f"16b: conditional nodes {nodes}")
+        # the slice's path: the captured skip run replayed, its launches counted
+        for fn in counted:
+            fn.launches = 0
+        before = sharded.migration_counts()
+        state, aux = run(start)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in zip(names, counted)}
+        replay_tally = tuple(b - a for a, b in zip(before, sharded.migration_counts()))
+        require(_bit_equal(_as_list(state, aux), _as_list(*ends["skip"])),
+                "16b: the replayed run differs from its first call")
+        require(all(c == SKIP_STEPS for c in launches.values()),
+                f"16b: launches of a replayed {SKIP_STEPS}-step run {launches}")
+    finally:
+        os.environ.pop("TPUSPH_DIST_FULL_MACHINERY", None)
+    print(f"16b. one rank, whole machinery, {N_MAIN} grid init, make_sharded_run({SKIP_STEPS}) "
+          f"graphed: the skip, TPUSPH_DIST_FORCE_MIGSORT=1 and the eager run (host-read skip) "
+          f"end equal bit for bit (rows and counters); (sorts, skips) {tallies}; the replay "
+          f"{replay_tally}; nodes of the run graph, skip {nodes['skip']}, sort {nodes['sort']}; "
+          f"first call (capture, replay) s {capture_s}; launches of a replay {launches}")
+    del comm
+
+    # c. the sharded bench on one rank through the whole machinery, the
+    # sort and the skip in turns (phase 14c's protocol)
+    for n in GRAPH_TIERS:
+        cfg_n = tuned_config(n)
+        host0 = init_state(cfg_n, device="cpu")
+        os.environ["TPUSPH_DIST_FULL_MACHINERY"] = "1"
+        try:
+            sim = DistSimulator(cfg_n, device=dev)
+            sim.setup(host0)
+            sim.right_size(warmup_steps=10)
+            runners = {k: sharded.make_sharded_run(sim.cfg, sim.dcfg, sim.comm, k)
+                       for k in (CHAIN_STEPS, PROFILED_STEPS)}
+            rates, busy, ends, tallies = {"sort": [], "skip": []}, {}, {}, {}
+            capture_s, nodes = {}, {}
+            for mode in ("sort", "skip", "skip", "sort"):
+                os.environ["TPUSPH_DIST_FORCE_MIGSORT"] = "1" if mode == "sort" else "0"
+                try:
+                    sim.setup(host0)
+                    sim._runners.update(runners)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sim.run(CHAIN_STEPS)  # warm (the capture, at its first turn)
+                    torch.cuda.synchronize()
+                    capture_s.setdefault(mode, time.perf_counter() - t0)
+                    sim.setup(host0)
+                    sim._runners.update(runners)
+                    before = sharded.migration_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sim.run(CHAIN_STEPS)
+                    torch.cuda.synchronize()
+                    rates[mode].append(CHAIN_STEPS / (time.perf_counter() - t0))
+                    tallies.setdefault(mode, tuple(
+                        b - a for a, b in zip(before, sharded.migration_counts())))
+                    if mode in ends:
+                        require(_bit_equal(list(sim.state), ends[mode]),
+                                f"16c {n}: the {mode} turns end apart")
+                    ends[mode] = list(sim.state)
+                    if mode not in busy:
+                        loop = runners[CHAIN_STEPS].graphs.loops[("run", False, mode == "sort")]
+                        nodes[mode] = graph_cond.node_counts(
+                            loop.chain[0].graph.raw_cuda_graph())["conditional"]
+                        sim.run(PROFILED_STEPS)  # the capture of the profiled run
+                        busy[mode] = bench_torch._busy_share(lambda: sim.run(PROFILED_STEPS),
+                                                             dev)
+                finally:
+                    os.environ.pop("TPUSPH_DIST_FORCE_MIGSORT", None)
+            require(_bit_equal(ends["sort"], ends["skip"]),
+                    f"16c {n}: the skip ends apart from the sort")
+            require(tallies == {"sort": (CHAIN_STEPS, 0), "skip": (0, CHAIN_STEPS)},
+                    f"16c {n}: (sorts, skips) {tallies}")
+            require(nodes == {"sort": 0, "skip": CHAIN_STEPS},
+                    f"16c {n}: conditional nodes of the run graphs {nodes}")
+            print(f"16c. sharded bench, one rank, whole machinery, {n} grid init, capacities dev "
+                  f"{sim.dcfg.dev_capacity} halo {sim.dcfg.halo_capacity} migration "
+                  f"{sim.dcfg.migration_capacity}: timesteps/s of graphed {CHAIN_STEPS}-step "
+                  f"runs in turns sort, skip, skip, sort {_turns(rates)}; busy share sort "
+                  f"{busy['sort']} skip {busy['skip']}; (sorts, skips) {tallies}; conditional "
+                  f"nodes of the {CHAIN_STEPS}-step run graph {nodes}; first call (capture, "
+                  f"replay) s {capture_s}; the runs end equal bit for bit; {card}")
+            del sim
+        finally:
+            os.environ.pop("TPUSPH_DIST_FULL_MACHINERY", None)
+    return row, launches
 
 
 def main() -> int:
@@ -2770,10 +3049,12 @@ def main() -> int:
         dist_launches[name].update(brick)
     bench_launches = bench_phase(card, kernels, chain_rate, dev)
     for name, counts in slice_phase(card, kernels, dev).items():
-        dist_launches[name].update(counts)
+        dist_launches.setdefault(name, {}).update(counts)
     graph_launches = graph_phase(card, kernels, timed_rate, dev)
     for name, counts in multirank_phase(card, dev).items():
         graph_launches[name].update(counts)
+    results["set_if"], branch_launches = branch_phase(card, kernels, dev)
+    launches["set_if"] = branch_launches["set_if"]
 
     for name, r in results.items():
         r["launches_per_replay"] = replay_launches.get(name, 0)
@@ -2783,6 +3064,8 @@ def main() -> int:
             r["dist_launches"] = dist_launches[name]
         if name in graph_launches:
             r["graph_launches"] = graph_launches[name]
+        if name in branch_launches:
+            r["branch_launches"] = branch_launches[name]
         r.setdefault("baseline_ms", None)
         r.setdefault("library_ms", None)
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
@@ -2795,7 +3078,7 @@ def main() -> int:
                               "sass_instructions_per_round", "sass_loads_per_round",
                               "best_load_bytes_per_clock_per_sm", "rates", "turns",
                               "device_ms", "baseline_device_ms", "dist_launches",
-                              "bench_launches", "graph_launches")
+                              "bench_launches", "graph_launches", "branch_launches", "body_ms")
             if k in r}}
         for name, r in results.items()
     ]

@@ -39,7 +39,7 @@ from tpusph_torch.engine.step import (
     step_kernels_fields,
 )
 from tpusph_torch.interact import impulse as timp
-from tpusph_torch.kernels import fused, qrank
+from tpusph_torch.kernels import fused, graph_cond, qrank
 from tpusph_torch.neighbors import grid as tgrid
 from tpusph_torch.viz import project as tproject
 from tpusph_torch.viz import render
@@ -162,7 +162,10 @@ def test_graph_replays_count_launches():
     assert after[qrank.rank_queries] - before[qrank.rank_queries] == 15
     assert after[fused.density] - before[fused.density] == 15
     assert after[fused.force] == before[fused.force]
-    assert set(graphs.COUNTED) == {qrank.rank_queries, fused.density, fused.force}
+    assert after[graph_cond.set_if] == before[graph_cond.set_if]
+    # the step kernels and the device branch's set_if
+    assert set(graphs.COUNTED) == {qrank.rank_queries, fused.density, fused.force,
+                                   graph_cond.set_if}
 
 
 # ----------------------------------------------------------- fields path

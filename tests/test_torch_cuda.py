@@ -988,3 +988,117 @@ def test_two_ranks_on_the_card_replay_segments(dev, engine, tmp_path):
              "blob": bricks.blob()}
     spawn_ranks(ranks.card_graph_checks, 2, f"file://{tmp_path}/store", dev, (cases, engine),
                 300.0, shape=None if engine == "slab" else (2, 1, 1))
+
+
+# ------------------------------------------- the device branch (graph_cond)
+
+
+def _if_node_ran(pred, dev):
+    """(ran, condition, node counts): one graph holding `set_if` on `pred`
+    and an if node whose body writes 1 into a zeroed flag, replayed once;
+    `ran` is the flag (the branch the card took), `condition` what
+    `set_if` returned, the counts those of the graph's top level."""
+    from tpusph_torch.kernels import graph_cond
+
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    body = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body.capture_begin(pool=torch.cuda.graph_pool_handle())
+        flag.fill_(1)
+        body.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    parent = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(parent):
+        flag.zero_()
+        cond = graph_cond.set_if(pred, body.raw_cuda_graph())
+    parent.instantiate()
+    counts = graph_cond.node_counts(parent.raw_cuda_graph())
+    parent.replay()
+    torch.cuda.synchronize()
+    return bool(flag), bool(cond), counts
+
+
+@pytest.mark.parametrize("value", [-2, 0, 1, 5])
+def test_set_if_node_runs_its_body_where_pred_holds(dev, value):
+    """`set_if` (csrc/graph_cond.cu, a runtime of its own beside torch's)
+    on a graph torch captures: the if node runs its body exactly where
+    its plain version, pred > 0, holds; the graph holds one conditional
+    node; one launch is counted at capture."""
+    from tpusph_torch.kernels import graph_cond
+
+    pred = torch.tensor(value, dtype=torch.int32, device=dev)
+    before = graph_cond.set_if.launches
+    ran, cond, counts = _if_node_ran(pred, dev)
+    want = bool(graph_cond.set_if_plain(pred.cpu()))
+    assert ran == cond == want
+    assert counts["conditional"] == 1 and counts["kernel"] >= 1
+    assert graph_cond.set_if.launches == before + 1
+
+
+def test_device_if_in_a_graphed_loop(dev):
+    """`graphs.device_if` in a graphed body on the card: the branch (a
+    stable sort) runs in a conditional node only where the predicate
+    holds at the replay, and each replay equals the plain version's
+    select; one conditional node and one `set_if` launch a replay; outside
+    a body's warm-up and capture it raises."""
+    from tpusph_torch.engine import graphs
+    from tpusph_torch.kernels import graph_cond
+
+    def branch(cat):
+        return torch.sort(cat, stable=True).indices
+
+    def body(inputs):
+        cat, pred = inputs
+        alt = torch.arange(cat.numel(), device=cat.device)
+        return [graphs.device_if(pred > 0, branch, (cat,), alt)]
+
+    loop = graphs.GraphedLoop(body, dev)
+    rng = np.random.default_rng(0)
+    for k, value in enumerate((1, 0, 3, 0)):
+        cat = torch.from_numpy(rng.integers(0, 4, 70_000).astype(np.uint8)).to(dev)
+        pred = torch.tensor(value, device=dev)
+        before = graph_cond.set_if.launches
+        (got,) = loop([cat, pred])
+        want = branch(cat) if value > 0 else torch.arange(cat.numel(), device=dev)
+        assert torch.equal(got, want), k
+        if k:
+            assert graph_cond.set_if.launches == before + 1
+    assert graph_cond.node_counts(loop.graph.graph.raw_cuda_graph())["conditional"] == 1
+    with pytest.raises(RuntimeError, match="graphed body"):
+        graphs.device_if(torch.tensor(True, device=dev), branch, (cat,), got)
+
+
+def test_graphed_slab_run_branches_on_the_card(dev, monkeypatch):
+    """One z-slab rank through the whole machinery at 4,096 grid init, a
+    5-step `make_sharded_run`: the graphed run takes the skip on the card
+    (one conditional node a step in its graph, branch counts (0, 5)) and
+    equals its eager run and the graphed run with
+    TPUSPH_DIST_FORCE_MIGSORT=1 (no conditional node, (5, 0)) bit for bit."""
+    from tpusph_torch.dist import sharded
+    from tpusph_torch.dist.comm import SlabComm
+    from tpusph_torch.kernels import graph_cond
+
+    monkeypatch.setenv("TPUSPH_DIST_FULL_MACHINERY", "1")
+    n, steps = 4096, 5
+    cfg = default_config(n, chunk_size=1024)
+    comm = SlabComm(dev)
+    dcfg = sharded.DistConfig(1, n, 1024, 256)
+    start = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
+    run = sharded.make_sharded_run(cfg, dcfg, comm, steps)
+    ends = {}
+    for forced, mode in (("0", "graphed"), ("0", "eager"), ("1", "graphed")):
+        monkeypatch.setenv("TPUSPH_DIST_FORCE_MIGSORT", forced)
+        before = sharded.migration_counts()
+        ends[forced, mode] = run(start) if mode == "graphed" else run.eager(start)
+        counts = tuple(b - a for a, b in zip(before, sharded.migration_counts()))
+        assert counts == ((steps, 0) if forced == "1" else (0, steps)), (forced, mode, counts)
+    for key in ends:
+        (a, aux_a), (b, aux_b) = ends[key], ends["0", "eager"]
+        assert [int(x) for x in aux_a] == [int(x) for x in aux_b], key
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), key
+    for forced, want in (("0", steps), ("1", 0)):
+        key = ("run", False, forced == "1")
+        graph = run.graphs.loops[key].chain[0].graph
+        assert graph_cond.node_counts(graph.raw_cuda_graph())["conditional"] == want, forced

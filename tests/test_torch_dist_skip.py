@@ -1,7 +1,12 @@
 """The migration-free sort skip of the z-slab engine
 (`tpusph_torch/dist/sharded.py`, module docstring §6): a rank without
-slab-crossers takes the rows the category sort would give from
-`_skip_order` instead of sorting. Held here bit for bit against
+slab-crossers takes the rows the category sort would give without
+sorting, from `_skip_order` in an eager step (a host read) and from
+`_graphed_order` in a graphed one (`graphs.device_if`: the rotation every
+step, the sort only where a row crosses, a conditional node on a card;
+both computed and selected on the CPU, the same on every torch). The
+step under test is the graphed one, its body run under the capture guard
+here. Held here bit for bit against
 TPUSPH_DIST_FORCE_MIGSORT=1 (every row of every field, every counter,
 after every step) on one rank and on gloo ranks, and against tpusph's
 `make_sharded_run`, whose `lax.cond` takes the same skip. Everything runs
@@ -125,16 +130,18 @@ def test_skip_matches_tpusph_make_sharded_run(tmp_path, eight_devices):
 
 
 def test_no_skip_where_it_does_not_apply(cases, monkeypatch):
-    """The skip is never decided (no read of the card) with
-    TPUSPH_DIST_FORCE_MIGSORT=1, on a layout that is merged rather than
-    spliced (dev_capacity < 2·halo_capacity), or in the brick engine,
-    which shares `_final_hop` and has no skip in tpusph either."""
+    """The skip is never decided (no read of the card, no device branch)
+    with TPUSPH_DIST_FORCE_MIGSORT=1, on a layout that is merged rather
+    than spliced (dev_capacity < 2·halo_capacity), or in the brick engine,
+    which shares `_final_hop` and has no skip in tpusph either: the graphed
+    and the eager step sort."""
     monkeypatch.setenv("TPUSPH_DIST_FULL_MACHINERY", "1")
 
     def refuse(*args):
-        raise AssertionError("_skip_order called")
+        raise AssertionError("the skip was decided")
 
     monkeypatch.setattr(sharded, "_skip_order", refuse)
+    monkeypatch.setattr(sharded, "device_if", refuse)
     cfg = ranks.dense_cfg()
     comm = SlabComm("cpu")
     for env, dcfg in (("1", DistConfig(1, cfg.padded_num_particles, 256, 128)),
@@ -142,9 +149,11 @@ def test_no_skip_where_it_does_not_apply(cases, monkeypatch):
         monkeypatch.setenv("TPUSPH_DIST_FORCE_MIGSORT", env)
         sharded.migration_sorts = sharded.migration_skips = 0
         state = distribute_state(ranks._as_state(cases["grid"]), cfg, dcfg, comm)
-        state, aux = make_sharded_step(cfg, dcfg, comm)(state)
-        ranks._clean(aux, cfg.num_particles)
-        assert (sharded.migration_sorts, sharded.migration_skips) == (1, 0)
+        step = make_sharded_step(cfg, dcfg, comm)
+        for fn in (step, step.eager):
+            _, aux = fn(state)
+            ranks._clean(aux, cfg.num_particles)
+        assert (sharded.migration_sorts, sharded.migration_skips) == (2, 0)
     monkeypatch.setenv("TPUSPH_DIST_FORCE_MIGSORT", "0")
     brick = BrickComm("cpu", None, (1, 1, 1))
     mcfg = mesh3d.Mesh3DConfig((1, 1, 1), 1024, (1024,) * 3, (128,) * 3)

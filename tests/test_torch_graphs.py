@@ -5,9 +5,8 @@ the capture guard: here the guard is held to raise on every host read
 planted in every graphed body, the graphed entry points to the eager
 path of the same function bit for bit and to tpusph's jitted
 counterparts at the reference's bars, the migration-free sort skip inside
-a graph (`torch.cond`, or the sort where torch has no conditional node)
-to the category sort and to tpusph's `lax.cond` run with its branch
-counts, and grow-and-replay to an ample run, captured once more per
+a graph (`graphs.device_if`, a conditional node on a card) to the
+category sort and to tpusph's `lax.cond` run with its branch counts, and grow-and-replay to an ample run, captured once more per
 growth. Small N, one thread.
 """
 
@@ -343,8 +342,8 @@ def test_one_rank_graphs_match_tpusph(engine, kind, full, monkeypatch):
     with the ±3 z drift): positions and velocities by pid at the
     reference's bars and the nine counters equal after each call, the
     graphed and the eager call bit for bit (a graphed update refuses rows
-    its build did not hand out), and the migration branches counted: on the whole machinery the skip, through `torch.cond`, where
-    torch captures one (else the sort)."""
+    its build did not hand out), and the migration branches counted: on the
+    whole machinery the skip, through `graphs.device_if`, on every torch."""
     monkeypatch.setenv("TPUSPH_DIST_FULL_MACHINERY", "1" if full else "0")
     monkeypatch.delenv("TPUSPH_DIST_FORCE_MIGSORT", raising=False)
     cfg = ranks.sparse_cfg()
@@ -390,12 +389,9 @@ def test_one_rank_graphs_match_tpusph(engine, kind, full, monkeypatch):
         ranks._close(ours, theirs)
     sorts, skips = (b - a for a, b in zip(counts0, sharded.migration_counts()))
     if engine == "slab" and full:
-        # each call and its eager twin: the eager skip's host read takes the
-        # skip; the graph the skip where torch captures a branch
-        migrations = steps
-        want_counts = ((0, 2 * migrations) if graphs.CONDITIONAL_NODES
-                       else (migrations, migrations))
-        assert (sorts, skips) == want_counts
+        # each call and its eager twin: the eager skip's host read and the
+        # graph's device branch both take the skip
+        assert (sorts, skips) == (0, 2 * steps)
     else:
         assert (sorts, skips) == (0, 0)
     del comm
@@ -406,11 +402,11 @@ def test_one_rank_graphs_match_tpusph(engine, kind, full, monkeypatch):
     (7, 40, "dn"), (19, 101, "up"),
 ])
 def test_the_device_branch_is_the_category_sort(n_lo, n_kept, crosser):
-    """`_graphed_order`, the branch a graph takes with no host read: the
-    category sort's order where a row crosses a face, the rotation
-    `_skip_order` gives where none does (`torch.cond` where torch captures
-    one), and its (sorts, skips) tally; without conditional nodes it
-    leaves the order to the sort and counts a sort."""
+    """`_graphed_order`, the branch a graph takes with no host read
+    (`graphs.device_if`): the category sort's order where a row crosses a
+    face, the rotation `_skip_order` gives where none does, and its
+    (sorts, skips) tally, on every torch; with the skip off it leaves the
+    order to the sort and counts a sort."""
     n, m_cap = 128, 16
     live = torch.zeros(n, dtype=torch.bool)
     live[n_lo:n_lo + n_kept] = True
@@ -419,14 +415,12 @@ def test_the_device_branch_is_the_category_sort(n_lo, n_kept, crosser):
         (dn if crosser == "dn" else up)[n_lo] = True
     kept = live & ~dn & ~up
     want = sharded._sort_branch(sharded._categories(kept, dn, up, m_cap))
-    order, tally = sharded._graphed_order(live, dn, up, m_cap, skip=True)
-    if graphs.CONDITIONAL_NODES:
-        assert torch.equal(order, want)
-        assert tally.tolist() == ([1, 0] if crosser else [0, 1])
-        if not crosser:
-            assert torch.equal(order, sharded._skip_order(live, dn, up, n + m_cap))
-    else:
-        assert order is None and tally.tolist() == [1, 0]
+    with no_host_reads(torch.device("cpu")):
+        order, tally = sharded._graphed_order(live, dn, up, m_cap, skip=True)
+    assert torch.equal(order, want)
+    assert tally.tolist() == ([1, 0] if crosser else [0, 1])
+    if not crosser:
+        assert torch.equal(order, sharded._skip_order(live, dn, up, n + m_cap))
     order, tally = sharded._graphed_order(live, dn, up, m_cap, skip=False)
     assert order is None and tally.tolist() == [1, 0]
 

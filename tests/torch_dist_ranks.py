@@ -559,9 +559,12 @@ def card_graph_checks(comm, cases: dict, engine: str) -> None:
     (`graphed_against_eager`; every segment replays under sync debug mode
     "error"), the counters of a graphed call on the card, and each
     kernel launched once a replayed step, in the segment after the halo
-    exchange; none in a run's fold."""
-    from tpusph_torch.dist import mesh3d
+    exchange; none in a run's fold. The slab step's migration branch
+    (`set_if`, where the skip applies) is launched once a step, the brick
+    engine's never (it has no skip)."""
+    from tpusph_torch.dist import mesh3d, sharded
     from tpusph_torch.engine.graphs import COUNTED
+    from tpusph_torch.kernels.graph_cond import set_if
 
     if engine == "slab":
         cfg = dense_cfg()
@@ -575,14 +578,18 @@ def card_graph_checks(comm, cases: dict, engine: str) -> None:
         makers = (mesh3d.make_mesh3d_step, mesh3d.make_mesh3d_timed, mesh3d.make_mesh3d_run)
     assert start.position.is_cuda
     got = graphed_against_eager(comm, cfg, dcfg, start, makers)
+    kernels = [fn for fn in COUNTED if fn is not set_if]
+    skip = engine == "slab" and sharded._aligned(cfg, dcfg)
     for name, graphs in got.items():
         for key, loop in graphs.loops.items():
-            per_kernel = [sum(seg.get(fn, 0) for seg in loop.launches) for fn in COUNTED]
+            per_kernel = [sum(seg.get(fn, 0) for seg in loop.launches) for fn in kernels]
             want = 0 if key[0] in ("build", "fold") else 1
             assert per_kernel == [want] * 3, (name, key, per_kernel)
+            branches = sum(seg.get(set_if, 0) for seg in loop.launches)
+            assert branches == (want if skip else 0), (name, key, branches)
             if key[0] in ("step", "run"):  # the kernels follow the halo exchange
                 assert loop.structure[:2] == ["segment", "exchange"], loop.structure
-                assert all(loop.launches[1].get(fn) == 1 for fn in COUNTED), loop.launches
+                assert all(loop.launches[1].get(fn) == 1 for fn in kernels), loop.launches
     step = makers[0](cfg, dcfg, comm)
     _, aux = step(start)
     assert all(a.is_cuda for a in aux)

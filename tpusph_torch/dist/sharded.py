@@ -46,11 +46,10 @@ mesh collectives stood. Per step and rank:
      choice is a host read of whether this rank has crossers, one
      wait a step, just before the migration exchange (which on a
      host-staged group waits on the card anyway). A graphed step
-     reads nothing: where torch captures `torch.cond` as a
-     conditional node (`graphs.CONDITIONAL_NODES`) it branches on the
-     device's count of crossers as tpusph's `lax.cond` does; where it
-     does not (torch 2.11) the graph takes the category sort every step,
-     the same rows bit for bit. `migration_sorts` and `migration_skips`
+     reads nothing: it branches on the device as tpusph's `lax.cond`
+     does (`_graphed_order`): the rotation is computed every step, and a
+     conditional node (`graphs.device_if`) runs the category sort only
+     where a row crosses. `migration_sorts` and `migration_skips`
      count the branches taken; a graph's count stays on the card until
      `migration_counts()` reads it. TPUSPH_DIST_FORCE_MIGSORT=1 turns the
      skip off. On a line of one rank migration cannot happen and the
@@ -89,7 +88,7 @@ import torch
 
 from tpusph_torch.core.config import SimConfig
 from tpusph_torch.dist.comm import SlabComm, int32s
-from tpusph_torch.engine.graphs import CONDITIONAL_NODES, SegmentedLoop
+from tpusph_torch.engine.graphs import SegmentedLoop, device_if
 from tpusph_torch.engine.step import (
     _density_pass_sorted,
     _force_pass_sorted,
@@ -522,17 +521,17 @@ def _skip_branch(cat: torch.Tensor) -> torch.Tensor:
 
 def _graphed_order(live, mig_dn, mig_up, m_cap: int, skip: bool):
     """The migration branch of a graphed body, with no host read: (order,
-    int32[2] (sorts, skips)). Where the skip applies and torch captures a
-    branch as a conditional node (`graphs.CONDITIONAL_NODES`), `torch.cond`
-    on the device's count of crossers takes the sort or the rotation, as
-    tpusph's `lax.cond` does; otherwise the sort runs every step (order
-    None), which gives the same rows bit for bit."""
-    if not (skip and CONDITIONAL_NODES):
+    int32[2] (sorts, skips)). Where the skip applies, tpusph's `lax.cond`
+    on the device: the rotation (`_skip_branch`) is computed every step,
+    the category sort only where a row crosses a face (a conditional node
+    on a card, `graphs.device_if`), and the crossers select between the
+    two. Otherwise the sort runs (order None)."""
+    if not skip:
         one = torch.ones((), dtype=torch.int32, device=live.device)
         return None, torch.stack([one, one - 1])
     crossers = (mig_dn | mig_up).any()
     cat = _categories(live & ~mig_dn & ~mig_up, mig_dn, mig_up, m_cap)
-    order = torch.cond(crossers, _sort_branch, _skip_branch, (cat,))
+    order = device_if(crossers, _sort_branch, (cat,), _skip_branch(cat))
     return order, torch.stack([crossers, ~crossers]).to(torch.int32)
 
 

@@ -19,10 +19,21 @@ kernel's plain version, which stands for a launch
 `torch.cuda.set_sync_debug_mode("error")` also holds around capture and
 replay, so a synchronising call raises too.
 
-A branch on the device: `torch.cond` becomes a conditional node of the
-graph where torch has the dispatch mode that captures it
-(`CONDITIONAL_NODES`); a body chooses by that flag, never by catching a
-failure.
+A branch on the device, tpusph's `lax.cond`: `device_if(pred, branch,
+args, out)` is `branch(*args)` where the 0-d `pred` is true (above 0),
+else `out`. On a card the warm-up call of a body captures `branch` once
+into a graph of its own (a private memory pool, static input and output
+tensors) and replays it; the capture call copies `args` into the
+branch's inputs and adds a conditional node behind the port's own kernel
+`set_if` (`kernels/graph_cond.py`, `csrc/graph_cond.cu`), whose body is a
+copy of the branch's graph, then selects between the branch's output and
+`out` by `pred`. Each replay runs the branch only where `pred` holds
+then. On the CPU both are computed and selected by `pred`, the same rows.
+The same on every torch; nothing falls back: a library that does not
+build, a node that does not instantiate or a torch without `keep_graph`
+raises. Every graph keeps its `cudaGraph_t` (`keep_graph=True`,
+instantiated after its capture), so its nodes can be counted
+(`graph_cond.node_counts`).
 
 The kernel wrappers count launches in Python, so a replay would count
 nothing. `CapturedGraph` keeps the per-replay launch counts of each
@@ -58,22 +69,16 @@ let through, and the boundaries are counted the same way (`structure`).
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 
 import torch
 from torch.overrides import TorchFunctionMode
 
 from tpusph_torch.kernels.fused import density, force
-from tpusph_torch.kernels.launch import in_plain_version
+from tpusph_torch.kernels.graph_cond import set_if
+from tpusph_torch.kernels.launch import in_plain_version, on_cpu
 from tpusph_torch.kernels.qrank import rank_queries
 
-COUNTED = (rank_queries, density, force)
-
-# torch.cond under stream capture becomes a conditional node through this
-# module's dispatch modes (not in torch 2.11; in 2.13)
-CONDITIONAL_NODES = (
-    importlib.util.find_spec("torch._higher_order_ops.cudagraph_conditional_nodes") is not None
-)
+COUNTED = (rank_queries, density, force, set_if)
 
 captures = 0  # graphs made in this process (on the CPU: first guarded calls)
 
@@ -147,14 +152,75 @@ class CapturedGraph:
             fn.launches += n
 
 
-def _control_flow_modes():
-    """(warm-up mode, capture mode) that make `torch.cond` capturable where
-    torch has them; null contexts otherwise."""
-    if not CONDITIONAL_NODES:
-        return contextlib.nullcontext(), contextlib.nullcontext()
-    from torch._higher_order_ops import cudagraph_conditional_nodes as cn
+_warming = 0  # warm-up calls of a body on a card running now
 
-    return cn.ControlFlowOpWarmupDispatchMode(), cn.CUDAGraphCaptureControlFlowOpDispatchMode()
+
+@contextlib.contextmanager
+def _warm_up():
+    """Around the warm-up call of a body that is captured next."""
+    global _warming
+    _warming += 1
+    try:
+        yield
+    finally:
+        _warming -= 1
+
+
+class _BranchGraph:
+    """`branch` captured into a graph of its own on static copies of its
+    arguments, after one eager call on them: the body of a conditional
+    node. Its memory pool is private, so that no tensor of a graph that
+    holds the node is ever handed to the branch's temporaries."""
+
+    def __init__(self, branch, args, device):
+        self.inputs = [a.clone() for a in args]
+        branch(*self.inputs)  # the eager call: lazy state is made outside the capture
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=torch.cuda.graph_pool_handle())
+            try:
+                with no_host_reads(device):
+                    self.output = branch(*self.inputs)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph.instantiate()
+        if not torch.is_tensor(self.output):
+            raise TypeError("a branch of device_if returns one tensor")
+
+
+_branch_graphs: dict = {}  # (branch, device, argument shapes and dtypes) -> _BranchGraph
+
+
+def device_if(pred: torch.Tensor, branch, args, out: torch.Tensor) -> torch.Tensor:
+    """`branch(*args)` where the 0-d `pred` (bool, or int) is above 0, else
+    `out` (a tensor shaped as the branch's output), inside a graphed body
+    (module docstring): a conditional node on a card, the two selected by
+    `pred` on the CPU. On a card it raises outside the warm-up and the
+    capture of a body."""
+    flag = pred.to(torch.int32)
+    device = flag.device
+    if on_cpu(device):
+        return torch.where(set_if(flag), branch(*args), out)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if not (capturing or _warming):
+        raise RuntimeError("device_if runs inside a graphed body (its warm-up or capture)")
+    key = (branch, device, tuple((tuple(a.shape), a.dtype) for a in args))
+    if key not in _branch_graphs:
+        if capturing:
+            raise RuntimeError("device_if: the branch is captured at the body's warm-up call")
+        _branch_graphs[key] = _BranchGraph(branch, args, device)
+    taken = _branch_graphs[key]
+    for dst, src in zip(taken.inputs, args):
+        dst.copy_(src)
+    if capturing:
+        cond = set_if(flag, taken.graph.raw_cuda_graph())
+    else:  # the warm-up: the branch runs, the select picks
+        taken.graph.replay()
+        cond = flag > 0
+    return torch.where(cond, taken.output, out)
 
 
 def capture(body, device: torch.device):
@@ -165,17 +231,17 @@ def capture(body, device: torch.device):
     from tpusph_torch.utils import cuda_build
 
     cuda_build.library()  # nvcc and the ctypes load never run inside capture
-    warm_mode, capture_mode = _control_flow_modes()
     compute = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(compute)
-    with torch.cuda.stream(side), warm_mode:
+    with torch.cuda.stream(side), _warm_up():
         body()
     compute.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     before = launch_counts()
-    with torch.cuda.graph(graph), capture_mode, no_host_reads(device):
+    with torch.cuda.graph(graph), no_host_reads(device):
         outputs = body()
+    graph.instantiate()
     per_replay = {fn: n - before[fn] for fn, n in launch_counts().items()}
     for fn, n in per_replay.items():
         fn.launches -= n  # recorded, not run
@@ -339,17 +405,15 @@ class SegmentedLoop(GraphedLoop):
         from tpusph_torch.utils import cuda_build
 
         cuda_build.library()  # nvcc and the ctypes load never run inside capture
-        warm_mode, capture_mode = _control_flow_modes()
         compute = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(compute)
         with torch.cuda.stream(side):
-            with warm_mode:
+            with _warm_up():
                 self.fn(self.inputs)
             self.chain, self._pool = [], torch.cuda.graph_pool_handle()
             try:
-                with capture_mode:
-                    self.outputs = self._segmented(self.inputs, recording=True)
+                self.outputs = self._segmented(self.inputs, recording=True)
             except BaseException:
                 self.chain = None
                 raise
@@ -362,7 +426,7 @@ class SegmentedLoop(GraphedLoop):
         if self._recording:
             self.structure.append("segment")
         if self.device.type == "cuda":
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             before = launch_counts()
             with _sync_debug("default"):  # the guard is for the body, not the capture's calls
                 graph.capture_begin(pool=self._pool)
@@ -375,6 +439,7 @@ class SegmentedLoop(GraphedLoop):
         (graph, before), self._open = self._open, None
         with _sync_debug("default"):
             graph.capture_end()
+            graph.instantiate()
         per_replay = {fn: n - before[fn] for fn, n in launch_counts().items()}
         for fn, n in per_replay.items():
             fn.launches -= n  # recorded, not run

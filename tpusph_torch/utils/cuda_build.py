@@ -57,6 +57,8 @@ SIGNATURES = {
     "tpusph_loop_probe": [P, P, P, I, I, I, I, I, I, P, P],
     # the first design: desc, t, cand, cap, pt, bl, rounds, variant, out, stream
     "tpusph_loop_probe_baseline": [P, P, P, I, I, I, I, I, P, P],
+    # the device branch (graph_cond.cu): stream, pred (int32[1]), child graph
+    "tpusph_graph_if": [P, P, P],
 }
 
 
