@@ -38,7 +38,8 @@ to the fields step bit for bit; `build_bench`'s three starts tables agree;
 graphed entry point (`make_step`, `make_impulse`, the one-rank slab and
 brick steps, timed stages and runs) replays a CUDA graph bit for bit
 equal to its eager path, with sync debug mode "error" around the
-replays, and a body that reads the card on the host fails its capture.
+replays, and a body that reads the card on the host fails its capture; a
+capture records its spans and a traced replay adds its graph's nodes.
 With peers: a segmented loop replays its chain of graphs and transports,
 and two ranks on the card over gloo (a slab line, a (2, 1, 1) brick grid)
 replay each graphed entry point's segments bit for bit equal to its eager
@@ -938,6 +939,42 @@ def test_a_host_read_fails_the_capture(dev):
 
     with pytest.raises(HostReadError):
         GraphedLoop(body, dev)([torch.ones(4, device=dev)])
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_a_capture_records_its_spans_and_a_replay_its_nodes(dev, profiled):
+    """One capture records `graph.warmup` and `graph.record` once, with a
+    profile recording or not; each replay under a profile adds its graph's
+    top-level nodes (`graph_cond.node_counts`) to `graph.nodes` and records
+    `graph.copy_in`, `graph.replay` and `graph.clone_out` in `graph.call`."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusph_torch.bench import spans
+    from tpusph_torch.engine.graphs import GraphedLoop
+    from tpusph_torch.kernels.graph_cond import node_counts
+
+    spans.reset()
+    loop = GraphedLoop(lambda inputs: [inputs[0] * 2 + 1, inputs[0].sum()], dev)
+    x = torch.arange(8.0, device=dev)
+    with profile(activities=[ProfilerActivity.CPU]) if profiled else contextlib.nullcontext():
+        loop([x])
+    tot = spans.totals()
+    assert tot["graph.warmup"].count == 1 and tot["graph.record"].count == 1
+    nodes = node_counts(loop.graph.graph.raw_cuda_graph())["nodes"]
+    assert nodes >= 2 and loop.graph.nodes == nodes
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for k in range(3):
+            y = x + k
+            assert torch.equal(loop([y])[0], y * 2 + 1)
+    assert spans.counts() == {"graph.nodes": 3 * nodes}
+    tot = spans.totals()
+    names = ("graph.call", "graph.copy_in", "graph.replay", "graph.clone_out")
+    assert {k: tot[k].count for k in tot} == dict.fromkeys(names, 3)
+    torch.cuda.synchronize()
+    spans.reset()
 
 
 # ------------------------------------ ranks with peers: segments of graphs

@@ -49,6 +49,15 @@ last call left them, so a timed step's two phases are two replays with no
 copy between them. `captures` counts the loops captured (on the CPU, the
 first guarded call of each loop), so a caller can see a re-capture.
 
+Spans (`bench/spans.py`), while a profile records: `graph.call` around a
+`GraphedLoop` call, and inside it `graph.copy_in` (the inputs' copies into
+the graph's tensors), `graph.replay` (each `CUDAGraph.replay()`, the host's
+launch; on the CPU the body's guarded call) and `graph.clone_out` (the
+output clones); the counter `graph.nodes` adds each replayed graph's
+top-level nodes, counted at capture. Every capture records `graph.warmup`
+(the warm-up call) and `graph.record` (capture and instantiation), profile
+or not.
+
 `SegmentedLoop` is a `GraphedLoop` whose body talks to other ranks: a
 sharded step of a rank with peers. A transport between ranks (a gloo
 exchange is a copy to the host, a send and a receive, a copy back) cannot
@@ -73,8 +82,9 @@ import contextlib
 import torch
 from torch.overrides import TorchFunctionMode
 
+from tpusph_torch.bench.spans import count, span
 from tpusph_torch.kernels.fused import density, force
-from tpusph_torch.kernels.graph_cond import set_if
+from tpusph_torch.kernels.graph_cond import node_total, set_if
 from tpusph_torch.kernels.launch import in_plain_version, on_cpu
 from tpusph_torch.kernels.qrank import rank_queries
 
@@ -139,17 +149,27 @@ def launch_counts() -> dict:
 
 
 class CapturedGraph:
-    """A captured graph and the launches of each counted wrapper that one
-    replay makes. `graph` needs only a `replay()` method."""
+    """A captured graph, the launches of each counted wrapper that one
+    replay makes, and its top-level nodes (`graph_cond.node_total`, 0 where
+    not counted). `graph` needs only a `replay()` method."""
 
-    def __init__(self, graph, launches: dict):
+    def __init__(self, graph, launches: dict, nodes: int = 0):
         self.graph = graph
         self.launches = {fn: n for fn, n in launches.items() if n}
+        self.nodes = nodes
 
     def replay(self) -> None:
-        self.graph.replay()
+        with span("graph.replay"):
+            self.graph.replay()
+        count("graph.nodes", self.nodes)
         for fn, n in self.launches.items():
             fn.launches += n
+
+
+def _nodes(graph) -> int:
+    """The top-level nodes of an instantiated `torch.cuda.CUDAGraph` made
+    with `keep_graph=True`."""
+    return node_total(graph.raw_cuda_graph())
 
 
 _warming = 0  # warm-up calls of a body on a card running now
@@ -234,19 +254,20 @@ def capture(body, device: torch.device):
     compute = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(compute)
-    with torch.cuda.stream(side), _warm_up():
+    with span("graph.warmup", always=True), torch.cuda.stream(side), _warm_up():
         body()
     compute.wait_stream(side)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     before = launch_counts()
-    with torch.cuda.graph(graph), no_host_reads(device):
-        outputs = body()
-    graph.instantiate()
+    with span("graph.record", always=True):
+        with torch.cuda.graph(graph), no_host_reads(device):
+            outputs = body()
+        graph.instantiate()
     per_replay = {fn: n - before[fn] for fn, n in launch_counts().items()}
     for fn, n in per_replay.items():
         fn.launches -= n  # recorded, not run
     captures += 1
-    return CapturedGraph(graph, per_replay), outputs
+    return CapturedGraph(graph, per_replay, _nodes(graph)), outputs
 
 
 class GraphedLoop:
@@ -277,26 +298,30 @@ class GraphedLoop:
 
     def __call__(self, inputs: list | None = None) -> list:
         global captures
-        if self.after is not None:
-            inputs = [*self.after.inputs, *self.after.outputs]
-        if self.device.type != "cuda":
-            if self.outputs is None:
-                captures += 1
-            self.inputs = inputs
-            self.outputs = self._run(list(inputs))
-            return self.outputs
-        if not self._captured():
-            self.inputs = (list(inputs) if self.after is not None
-                           else [t.to(self.device, copy=True, non_blocking=True) for t in inputs])
-            self._capture()
-        if self.after is None:  # the warm-up of a body that writes its inputs wrote them
-            for dst, src in zip(self.inputs, inputs):
-                if dst is not src:
-                    dst.copy_(src, non_blocking=True)
-        self._replay()
-        if not self.clone:
-            return list(self.outputs)
-        return [t.clone() if torch.is_tensor(t) else t for t in self.outputs]
+        with span("graph.call"):
+            if self.after is not None:
+                inputs = [*self.after.inputs, *self.after.outputs]
+            if self.device.type != "cuda":
+                if self.outputs is None:
+                    captures += 1
+                self.inputs = inputs
+                with span("graph.replay"):  # the body's guarded call stands for it
+                    self.outputs = self._run(list(inputs))
+                return self.outputs
+            if not self._captured():
+                self.inputs = (list(inputs) if self.after is not None else
+                               [t.to(self.device, copy=True, non_blocking=True) for t in inputs])
+                self._capture()
+            if self.after is None:  # the warm-up of a body that writes its inputs wrote them
+                with span("graph.copy_in"):
+                    for dst, src in zip(self.inputs, inputs):
+                        if dst is not src:
+                            dst.copy_(src, non_blocking=True)
+            self._replay()
+            if not self.clone:
+                return list(self.outputs)
+            with span("graph.clone_out"):
+                return [t.clone() if torch.is_tensor(t) else t for t in self.outputs]
 
     def _run(self, inputs: list) -> list:
         with no_host_reads(self.device):
@@ -409,14 +434,18 @@ class SegmentedLoop(GraphedLoop):
         side = torch.cuda.Stream(self.device)
         side.wait_stream(compute)
         with torch.cuda.stream(side):
-            with _warm_up():
+            with span("graph.warmup", always=True), _warm_up():
                 self.fn(self.inputs)
             self.chain, self._pool = [], torch.cuda.graph_pool_handle()
             try:
-                self.outputs = self._segmented(self.inputs, recording=True)
+                with span("graph.record", always=True):
+                    self.outputs = self._segmented(self.inputs, recording=True)
             except BaseException:
                 self.chain = None
                 raise
+        for item in self.chain:
+            if isinstance(item, CapturedGraph):
+                item.nodes = _nodes(item.graph)
         compute.wait_stream(side)
         captures += 1
 

@@ -42,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from tpusph_torch.bench.spans import span
 from tpusph_torch.bench.times import Times
 from tpusph_torch.core.config import SimConfig
 from tpusph_torch.core.init import init_state
@@ -301,44 +302,60 @@ class Simulator:
         copy of the positions to the host. The copy is double-buffered as in
         tpusph: the phase waits for the previous step's copy, which
         overlapped this step's build and update, and starts this step's
-        copy. A step that overflowed is replayed, untimed seconds rolled
-        back, with doubled capacity and its phases captured again; `iters`
-        counts only steps that stood."""
+        copy. A step that overflowed is replayed, its seconds not counted,
+        with doubled capacity and its phases captured again; `iters` counts
+        only steps that stood.
+
+        Spans (`bench/spans.py`), while a profile records: `sim.step` around
+        the step, inside it `sim.build` and `sim.update` (each phase's call
+        and its fence), `sim.copy_wait` (the wait for the previous copy) and
+        `sim.copy_start` (this step's); the four share their clock reads
+        with `times`, so they sum to its fields over steps that stood. A
+        step that overflowed leaves its `sim.build` and `sim.update` spans,
+        and its recapture `graph.warmup` and `graph.record`, though `times`
+        drops its seconds."""
         assert self.state is not None, "call setup() first"
         if self.backend not in ("kernels", "cell_list"):
             raise ValueError("timed mode needs the 'kernels' or 'cell_list' backend")
         if self._timed is None:
             self._timed = self._timed_phases()
-        build, update = self._timed
-        build0, update0, memcpy0 = times.build_grid, times.sph_update, times.memcpy
-
-        t0 = time.perf_counter()
-        build([getattr(self.state, f) for f in FIELDS])
-        self._sync()
-        t1 = time.perf_counter()
-        times.build_grid += t1 - t0
-
-        *fields, oob, ovf = update()
-        self._sync()
-        t2 = time.perf_counter()
-        times.sph_update += t2 - t1
-
-        if int(ovf) > 0:
-            times.build_grid, times.sph_update, times.memcpy = build0, update0, memcpy0
+        with span("sim.step"):
+            stood = self._timed_step(times)
+        if not stood:
             self._grow_capacity()
             self.simulate_and_time(times)
-            return
+
+    def _timed_step(self, times: Times) -> bool:
+        """The phases of `simulate_and_time`; False, with nothing added to
+        `times`, where the step overflowed."""
+        build, update = self._timed
+        t0 = time.perf_counter()
+        with span("sim.build", t0) as s:
+            build([getattr(self.state, f) for f in FIELDS])
+            self._sync()
+            t1 = s.end = time.perf_counter()
+        with span("sim.update", t1) as s:
+            *fields, oob, ovf = update()
+            self._sync()
+            t2 = s.end = time.perf_counter()
+        if int(ovf) > 0:
+            return False
 
         new_state = FluidState(*fields)
-        if self._pending_fetch is not None:
-            self._position_host = self._pending_fetch.wait()
-        self._pending_fetch = AsyncPositionFetch(new_state.position, self.cfg.num_particles)
-        t3 = time.perf_counter()
+        with span("sim.copy_wait", t2) as s:
+            if self._pending_fetch is not None:
+                self._position_host = self._pending_fetch.wait()
+        with span("sim.copy_start", s.end) as s:
+            self._pending_fetch = AsyncPositionFetch(new_state.position, self.cfg.num_particles)
+            t3 = s.end = time.perf_counter()
+        times.build_grid += t1 - t0
+        times.sph_update += t2 - t1
         times.memcpy += t3 - t2
 
         self.state = new_state
         self.last_aux = StepAux(oob_count=oob, window_overflow=ovf)
         times.iters += 1
+        return True
 
     # ------------------------------------------------------ chunked stepping
     def _chunk_fn(self, n_steps: int, pack_pixels=False) -> GraphedLoop:

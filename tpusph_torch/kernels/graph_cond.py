@@ -10,7 +10,8 @@ it makes that addition (the stream must be capturing) and counts one
 launch; on a CPU tensor it takes the plain version, `set_if_plain`. Both
 return the condition, `pred > 0`, as a bool tensor on `pred`'s device, for
 the select that follows the node (`engine/graphs.py::device_if`).
-`node_counts(graph)` counts the nodes of a captured graph by type.
+`node_counts(graph)` counts the nodes of a captured graph by type,
+`node_total(graph)` only their number.
 """
 
 from __future__ import annotations
@@ -71,6 +72,14 @@ def _check_cu(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: libcuda error {err}")
 
 
+def node_total(graph: int) -> int:
+    """The number of top-level nodes of `graph` (a `cudaGraph_t` as an
+    int): one `cuGraphGetNodes` with no array."""
+    n = ctypes.c_size_t(0)
+    _check_cu(_libcuda().cuGraphGetNodes(graph, None, ctypes.addressof(n)), "cuGraphGetNodes")
+    return n.value
+
+
 def node_counts(graph: int) -> dict:
     """{type: count} of the top-level nodes of `graph` (a `cudaGraph_t`
     as an int), "nodes" the total (`NODE_TYPES`). Read through libcuda
@@ -79,8 +88,7 @@ def node_counts(graph: int) -> dict:
     type of a conditional node in a graph that torch's runtime captured
     (H100, torch 2.11.0+cu128, nvcc 12.9)."""
     cu = _libcuda()
-    n = ctypes.c_size_t(0)
-    _check_cu(cu.cuGraphGetNodes(graph, None, ctypes.addressof(n)), "cuGraphGetNodes")
+    n = ctypes.c_size_t(node_total(graph))
     nodes = (ctypes.c_void_p * n.value)()
     if n.value:
         _check_cu(cu.cuGraphGetNodes(graph, ctypes.addressof(nodes), ctypes.addressof(n)),
