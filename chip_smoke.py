@@ -1824,19 +1824,21 @@ def slice_phase(card: str, kernels, dev) -> dict:
     return launches
 
 
-class EagerLoop:
-    """A `GraphedLoop`'s body run eagerly on the card, with the loop's
-    interface (`after=` included): the eager path of a graphed phase."""
+class EagerPhases:
+    """The bodies of a `graphs.CarriedLoop` run eagerly on the card, with its
+    interface (`build(state)`, then `update()`): the eager path of the timed
+    phases, fresh tensors each step."""
 
-    def __init__(self, loop, after=None):
-        self.fn, self.after = loop.fn, after
+    def __init__(self, phases):
+        self.phases = phases
         self.inputs = self.outputs = None
 
-    def __call__(self, inputs=None):
-        if self.after is not None:
-            inputs = [*self.after.inputs, *self.after.outputs]
-        self.inputs, self.outputs = inputs, self.fn(list(inputs))
+    def build(self, state):
+        self.inputs, self.outputs = list(state), self.phases.build_fn(list(state))
         return self.outputs
+
+    def update(self):
+        return self.phases.update_fn([*self.inputs, *self.outputs])
 
 
 @contextlib.contextmanager
@@ -1924,9 +1926,7 @@ def graph_phase(card: str, kernels, timed_rate: float, dev) -> dict:
         sim = Simulator(cfg, device=dev)
         sim.setup(start)
         if mode == "eager":
-            build, update = sim._timed_phases()
-            eager_build = EagerLoop(build)
-            sim._timed = (eager_build, EagerLoop(update, after=eager_build))
+            sim._timed = EagerPhases(sim._timed_phases())
         sim.simulate_and_time(Times())  # the capture, outside the turns
         sims[mode] = sim
     for mode in ("graphs", "eager", "eager", "graphs"):

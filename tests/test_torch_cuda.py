@@ -28,7 +28,12 @@ and a mean difference under 1 % of one round's term. The loop probe
 128, columns off a 32-lane slice, and a cand off 16 bytes (device memory
 at the entry point's shape); its first design at the same bars, the two beside each other, and
 inside a replayed CUDA graph. The copy of the
-positions to the host equals a synchronous copy exactly. One rank of the
+positions to the host equals a synchronous copy exactly. The timed step
+that carries its state in the graphs' own tensors equals the path that
+clones it out and copies it in, bit for bit: over 12 steps (one copy in,
+then no copy or clone a step), from a state put back, between untimed
+steps, from a state on the host and through an overflow that grows the
+capacity; `setup()`'s tensors and the fetched arrays keep their values. One rank of the
 sharded engine on the card, elided and with the whole multi-rank machinery,
 and `DistSimulator` on one rank as z-slabs and as a (1, 1, 1) brick grid,
 against the same steps on the CPU. `bench_torch`'s gates pass on the card
@@ -371,6 +376,128 @@ def test_fetch_buffer_is_pinned(dev):
     fetch = sim.get_position_async()
     assert fetch.buffer.is_pinned()
     np.testing.assert_array_equal(fetch.wait(), sim.state.position[:1024].cpu().numpy())
+
+
+class _Carried(Simulator):
+    """A Simulator whose timed phases carry their state in the graphs' own
+    tensors (`carry`) or, as before the carry, clone it out and copy it in,
+    through every capture again after a growth. A subclass and not a
+    patched instance, so that no reference cycle holds a Simulator: a
+    graph that dead cycles hold may be collected in the middle of another
+    capture, which that ends."""
+
+    carry = True
+
+    def _timed_phases(self):
+        loop = super()._timed_phases()
+        loop.carry = self.carry
+        return loop
+
+
+class _Cloned(_Carried):
+    carry = False
+
+
+def _timed_pair(dev, backend="kernels", **cfg_kw):
+    """(carried, cloned) Simulators at 4,096 grid init on the card, set up
+    from one state, and that state with a copy of its tensors."""
+    cfg = default_config(4096, chunk_size=1024, **cfg_kw)
+    start = init_state(cfg, device=dev)
+    sims = [kind(cfg, backend=backend, device=dev) for kind in (_Carried, _Cloned)]
+    for sim in sims:
+        sim.setup(start)
+    return (*sims, start, [getattr(start, f).clone() for f in _FIELDS])
+
+
+_FIELDS = ("position", "velocity", "force", "density", "pressure", "valid")
+
+
+def _states_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a.state, f), getattr(b.state, f)) for f in _FIELDS)
+
+
+def test_carried_timed_steps_equal_the_cloned_path(dev):
+    """12 timed steps: after each, the carried state (position, density,
+    every field) equals the cloned path's bit for bit; the steps alternate
+    between the two buffers, the first copies `setup()`'s state in and the
+    other eleven carry (`graph.carried`); once both pairs are captured a
+    carried step's host enqueues one copy, the fetch's, and no clone (one
+    profile a step); `setup()`'s tensors are unchanged; each
+    `get_position()` array keeps its values through later steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusph_torch.bench import spans
+
+    carried, cloned, start, kept = _timed_pair(dev)
+    steps, got, held, sources, ops = 12, [], [], [], []
+    spans.reset()
+    for _ in range(steps):
+        sources.append(carried._timed and carried._timed.source(
+            [getattr(carried.state, f) for f in _FIELDS]))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            carried.simulate_and_time(Times())
+        names = [e.name for e in prof.events()]
+        ops.append((names.count("aten::copy_"), names.count("aten::clone")))
+        got.append(carried.get_position())
+        held.append(got[-1].copy())
+        cloned.simulate_and_time(Times())
+        assert _states_equal(carried, cloned)
+        np.testing.assert_array_equal(got[-1], cloned.get_position())
+    assert sources == [None] + [1, 0] * 5 + [1]
+    assert spans.counts()["graph.carried"] == steps - 1
+    assert spans.totals()["graph.copy_in"].count == 1 and "graph.clone_out" not in spans.totals()
+    assert ops[2:] == [(1, 0)] * (steps - 2), ops
+    spans.reset()
+    for g, h in zip(got, held):
+        np.testing.assert_array_equal(g, h)
+    assert all(torch.equal(getattr(start, f), k) for f, k in zip(_FIELDS, kept))
+    assert len(carried._timed.pairs) == 2 and len(cloned._timed.pairs) == 1
+
+
+def test_carried_steps_put_back_and_between_untimed_steps(dev):
+    """The state put back to the step before's (the harness's `unchanged`
+    fault: that buffer's pair runs again, the copy of the other buffer in
+    flight waited for first), and `simulate()` between timed steps (its
+    state copied in): the states and fetched positions equal the cloned
+    path's bit for bit."""
+    carried, cloned, _, _ = _timed_pair(dev)
+    for k in range(12):
+        for sim in (carried, cloned):
+            if k % 4 == 3:
+                sim.simulate()
+            elif k in (5, 6):
+                before = sim.state
+                sim.simulate_and_time(Times())
+                sim.state = before
+            else:
+                sim.simulate_and_time(Times())
+        assert _states_equal(carried, cloned), k
+        np.testing.assert_array_equal(carried.get_position(), cloned.get_position())
+
+
+def test_a_state_on_the_host_is_copied_into_the_carried_buffers(dev):
+    """`setup()` with the start state's tensors on the host: the first
+    timed step copies them onto the card, and 3 steps equal the cloned
+    path's from the card's copy bit for bit."""
+    carried, cloned, start, _ = _timed_pair(dev)
+    carried.setup(type(start)(*(getattr(start, f).cpu() for f in _FIELDS)))
+    for _ in range(3):
+        carried.simulate_and_time(Times())
+        cloned.simulate_and_time(Times())
+        assert carried.state.position.device == dev and _states_equal(carried, cloned)
+
+
+def test_an_overflow_regrows_on_new_carried_pairs(dev):
+    """`cell_list` from tile_cand_capacity 64: a timed step that overflowed
+    is replayed at the grown capacity on new pairs, which copy the old
+    buffer's state in; 6 steps equal the cloned path's bit for bit."""
+    carried, cloned, _, _ = _timed_pair(dev, "cell_list", tile_cand_capacity=64)
+    for _ in range(6):
+        carried.simulate_and_time(Times())
+        cloned.simulate_and_time(Times())
+        assert _states_equal(carried, cloned)
+    assert carried.cfg.tile_cand_capacity == cloned.cfg.tile_cand_capacity > 64
+    assert len(carried._timed.pairs) == 2
 
 
 def _same(kernel, plain, rtol):

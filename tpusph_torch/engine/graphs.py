@@ -49,14 +49,21 @@ last call left them, so a timed step's two phases are two replays with no
 copy between them. `captures` counts the loops captured (on the CPU, the
 first guarded call of each loop), so a caller can see a re-capture.
 
+`CarriedLoop` is the timed step's: its two phases keep the state in the
+graphs' own tensors from step to step, in two buffers, S0 and S1, each read
+by one pair of (build, update) loops and written by the other's update. A
+step from the state the previous step left copies nothing in and clones
+nothing out; any other state is copied into S0 once.
+
 Spans (`bench/spans.py`), while a profile records: `graph.call` around a
 `GraphedLoop` call, and inside it `graph.copy_in` (the inputs' copies into
-the graph's tensors), `graph.replay` (each `CUDAGraph.replay()`, the host's
-launch; on the CPU the body's guarded call) and `graph.clone_out` (the
-output clones); the counter `graph.nodes` adds each replayed graph's
-top-level nodes, counted at capture. Every capture records `graph.warmup`
-(the warm-up call) and `graph.record` (capture and instantiation), profile
-or not.
+the graph's tensors: a carried loop's state other than its buffers),
+`graph.replay` (each `CUDAGraph.replay()`, the host's launch; on the CPU
+the body's guarded call) and `graph.clone_out` (the output clones); the
+counter `graph.nodes` adds each replayed graph's top-level nodes, counted
+at capture, and `graph.carried` each carried step. Every capture records
+`graph.warmup` (the warm-up call) and `graph.record` (capture and
+instantiation), profile or not.
 
 `SegmentedLoop` is a `GraphedLoop` whose body talks to other ranks: a
 sharded step of a rank with peers. A transport between ranks (a gloo
@@ -78,6 +85,7 @@ let through, and the boundaries are counted the same way (`structure`).
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -284,16 +292,22 @@ class GraphedLoop:
 
     `after`: a loop whose input and output tensors this one reads, where
     that loop's last call left them; call it with no inputs, after that
-    loop. `inputs` / `outputs`: the graph's tensors on a card, the last
-    call's on the CPU."""
+    loop. `inputs` given: the graph's input tensors are these, the
+    caller's, on both devices; a call copies into them what it is handed
+    (before the capture's warm-up, which reads them), and nothing where it
+    is handed None or this very list; the body must not write them.
+    `inputs` / `outputs`: the graph's tensors on a card, the last call's
+    on the CPU."""
 
-    def __init__(self, fn, device, clone: bool = True, after: GraphedLoop | None = None):
+    def __init__(self, fn, device, clone: bool = True, after: GraphedLoop | None = None,
+                 inputs: list | None = None):
         self.fn = fn
         self.device = torch.device(device)
         self.clone = clone
         self.after = after
+        self.static = inputs is not None
         self.graph: CapturedGraph | None = None
-        self.inputs: list | None = None
+        self.inputs: list | None = inputs
         self.outputs: list | None = None
 
     def __call__(self, inputs: list | None = None) -> list:
@@ -301,6 +315,9 @@ class GraphedLoop:
         with span("graph.call"):
             if self.after is not None:
                 inputs = [*self.after.inputs, *self.after.outputs]
+            elif self.static:  # its body reads them before the capture's warm-up
+                self._copy_in(inputs)
+                inputs = self.inputs
             if self.device.type != "cuda":
                 if self.outputs is None:
                     captures += 1
@@ -309,19 +326,29 @@ class GraphedLoop:
                     self.outputs = self._run(list(inputs))
                 return self.outputs
             if not self._captured():
-                self.inputs = (list(inputs) if self.after is not None else
-                               [t.to(self.device, copy=True, non_blocking=True) for t in inputs])
+                if not self.static:
+                    self.inputs = (list(inputs) if self.after is not None else
+                                   [t.to(self.device, copy=True, non_blocking=True)
+                                    for t in inputs])
                 self._capture()
             if self.after is None:  # the warm-up of a body that writes its inputs wrote them
-                with span("graph.copy_in"):
-                    for dst, src in zip(self.inputs, inputs):
-                        if dst is not src:
-                            dst.copy_(src, non_blocking=True)
+                self._copy_in(inputs)
             self._replay()
             if not self.clone:
                 return list(self.outputs)
             with span("graph.clone_out"):
                 return [t.clone() if torch.is_tensor(t) else t for t in self.outputs]
+
+    def _copy_in(self, inputs: list | None) -> None:
+        """Copy `inputs` into the graph's input tensors, each but those that
+        are the graph's own; nothing where `inputs` is None or the graph's
+        own list."""
+        if inputs is None or inputs is self.inputs:
+            return
+        with span("graph.copy_in"):
+            for dst, src in zip(self.inputs, inputs):
+                if dst is not src:
+                    dst.copy_(src, non_blocking=True)
 
     def _run(self, inputs: list) -> list:
         with no_host_reads(self.device):
@@ -336,6 +363,78 @@ class GraphedLoop:
     def _replay(self) -> None:
         with _sync_debug("error"):
             self.graph.replay()
+
+
+class CarriedLoop:
+    """A step of two phases whose state stays in the graphs' own tensors from
+    one step to the next: `build(state)` then `update()`, where
+    `build_fn(state) -> list` and `update_fn(state + build's outputs, out)
+    -> [*state', *rest]`. `update_fn` writes the new state into the tensors
+    `out` and returns them, and returns a field it leaves as it came as
+    that input tensor; with `out=None` it makes fresh tensors (the eager
+    body). `fields`: the length of the state list.
+
+    With `carry` (the default on a card) there are two state buffers and
+    two pairs of (build, update) `GraphedLoop`s, nothing cloned: S0, made
+    at the first call, and S1, the tensors pair A's update returns. Pair
+    A's build reads S0 and its update writes S1; pair B's reads S1 and
+    writes S0. A step whose state is a buffer by the identity of every
+    tensor runs that buffer's pair and enqueues no copy or clone (the
+    counter `graph.carried`); any other state is copied into S0 (the span
+    `graph.copy_in`, inside pair A's build) and runs pair A. A pair is
+    captured at its first step. So the state `update()` returns is a
+    buffer: it holds until the next step, which may copy into S0. Without
+    `carry` (the CPU), one pair of plain loops, as `GraphedLoop`'s
+    `after=` form makes them: the bodies run eagerly and return fresh
+    tensors, nothing copied."""
+
+    def __init__(self, build_fn, update_fn, device, fields: int):
+        self.build_fn, self.update_fn, self.fields = build_fn, update_fn, fields
+        self.device = torch.device(device)
+        self.carry = self.device.type == "cuda"
+        self.buffers: list = []  # S0, then S1
+        self.pairs: list = []  # (build, update) loops: pair A reads S0, pair B S1
+        self._pair: tuple | None = None  # the pair of the step under way
+
+    def source(self, state: list) -> int | None:
+        """The buffer that `state` is, tensor for tensor, else None."""
+        for k, buf in enumerate(self.buffers):
+            if all(a is b for a, b in zip(state, buf)):
+                return k
+        return None
+
+    def build(self, state: list) -> list:
+        """Replay the build of the pair that reads `state` (module docstring)."""
+        if not self.carry:
+            if not self.pairs:
+                build = GraphedLoop(self.build_fn, self.device, clone=False)
+                self.pairs.append((build, GraphedLoop(self.update_fn, self.device, after=build)))
+            self._pair = self.pairs[0]
+            return self._pair[0](state)
+        k = self.source(state)
+        if k is None:
+            if not self.buffers:
+                self.buffers.append([torch.empty_like(t, device=self.device) for t in state])
+            k = 0
+        else:
+            count("graph.carried", 1)
+            state = None  # the build reads its own tensors
+        if k == len(self.pairs):
+            out = ([torch.empty_like(t) for t in self.buffers[0]] if k == 0
+                   else self.buffers[0])
+            build = GraphedLoop(self.build_fn, self.device, clone=False, inputs=self.buffers[k])
+            update = GraphedLoop(functools.partial(self.update_fn, out=out), self.device,
+                                 clone=False, after=build)
+            self.pairs.append((build, update))
+        self._pair = self.pairs[k]
+        return self._pair[0](state)
+
+    def update(self) -> list:
+        """Replay the update of the step's pair: [*state', *rest]."""
+        outputs = self._pair[1]()
+        if self.carry and len(self.buffers) == 1:  # pair A's first step made S1
+            self.buffers.append(outputs[: self.fields])
+        return outputs
 
 
 def cross(kind: str, transport, args, like):

@@ -23,7 +23,9 @@ State stays on the device across steps. Each timed phase ends in a
 synchronize of the compute stream, so it measures device time as the
 reference's do; the copy of the positions to the host runs on a side
 stream into pinned memory and overlaps the next step (`AsyncPositionFetch`,
-`AsyncChunkFetch`).
+`AsyncChunkFetch`). On a card the timed steps carry the state in the
+graphs' own two buffers (`graphs.CarriedLoop`): after a timed step
+`self.state` is one of them, valid until the next `simulate_and_time`.
 
 Capacity: the `cell_list` backend's tile passes have a fixed candidate
 capacity and count what overflows it. `simulate`, `simulate_and_time` and
@@ -47,7 +49,7 @@ from tpusph_torch.bench.times import Times
 from tpusph_torch.core.config import SimConfig
 from tpusph_torch.core.init import init_state
 from tpusph_torch.core.state import FIELDS, FluidState
-from tpusph_torch.engine.graphs import GraphedLoop
+from tpusph_torch.engine.graphs import CarriedLoop, GraphedLoop
 from tpusph_torch.neighbors.cell_list import CellList
 from tpusph_torch.engine.step import (
     BACKENDS,
@@ -75,18 +77,21 @@ class AsyncPositionFetch:
     never overwritten. The source stays alive until the copy has read it:
     the fetch keeps a reference, and `record_stream` stops the caching
     allocator from handing its memory to later work on the compute stream
-    while the side stream still reads it.
+    while the side stream still reads it. A source that later work writes
+    in place (the timed phases' state buffers) is guarded by its writer
+    (`Simulator._fence_fetches`).
 
-    On a CPU tensor, `wait()` returns a plain copy."""
+    On a CPU tensor the copy is made at once, and `wait()` returns it."""
 
     def __init__(self, position: torch.Tensor, num_particles: int):
         self._src = position
-        self._n = num_particles
         self._host: np.ndarray | None = None
         self._done: torch.cuda.Event | None = None
         self.buffer: torch.Tensor | None = None  # pinned host tensor (CUDA)
         if position.device.type == "cuda":
             (self.buffer,), self._done = _copy_to_host([position[:num_particles]])
+        else:
+            self._host = position[:num_particles].numpy().copy()
 
     def matches(self, position: torch.Tensor) -> bool:
         """True when this fetch copies exactly `position` (by identity)."""
@@ -94,11 +99,8 @@ class AsyncPositionFetch:
 
     def wait(self) -> np.ndarray:
         if self._host is None:
-            if self._done is None:
-                self._host = self._src[: self._n].numpy().copy()
-            else:
-                self._done.synchronize()
-                self._host = self.buffer.numpy()
+            self._done.synchronize()
+            self._host = self.buffer.numpy()
         return self._host
 
 
@@ -218,6 +220,7 @@ class Simulator:
         self.last_aux = None
         self._position_host: np.ndarray | None = None
         self._pending_fetch: AsyncPositionFetch | None = None
+        self._step_fetch: AsyncPositionFetch | None = None  # the last timed step's
         self._build_fns()
 
     def _build_fns(self) -> None:
@@ -226,7 +229,7 @@ class Simulator:
         anew at their next call."""
         self._step = make_step(self.cfg, self.backend, self.device)
         self._impulse = make_impulse(self.cfg)
-        self._timed: tuple[GraphedLoop, GraphedLoop] | None = None
+        self._timed: CarriedLoop | None = None
         self._chunk_cache: dict = {}
 
     def setup(self, state: FluidState | None = None) -> None:
@@ -276,25 +279,26 @@ class Simulator:
         self.last_aux = aux
         self._position_host = None
 
-    def _timed_phases(self) -> tuple[GraphedLoop, GraphedLoop]:
-        """(build, update), the timed step's two phases as tpusph jits them
+    def _timed_phases(self) -> CarriedLoop:
+        """The timed step's two phases as tpusph jits them
         (`tpusph/engine/simulator.py:140-141`): `build(state fields) ->
         CellList fields` and `update() -> [*state fields, oob, overflow]`,
         the second reading the first's inputs and outputs in place. One
-        CUDA-graph replay each on a card (`engine/graphs.py`)."""
+        CUDA-graph replay each on a card, the state carried from step to
+        step in the graphs' own tensors (`graphs.CarriedLoop`)."""
         cfg, tiles = self.cfg, self.backend == "cell_list"
         update_fn = update_phase if tiles else update_phase_kernels
 
         def build_body(fields: list) -> list:
             return list(build_phase(FluidState(*fields), cfg, histogram=tiles))
 
-        def update_body(inputs: list) -> list:
+        def update_body(inputs: list, out: list | None = None) -> list:
             fields, cl = inputs[: len(FIELDS)], CellList(*inputs[len(FIELDS):])
-            new, aux = update_fn(FluidState(*fields), cl, cfg)
+            new, aux = update_fn(FluidState(*fields), cl, cfg,
+                                 None if out is None else FluidState(*out))
             return [*(getattr(new, f) for f in FIELDS), *aux]
 
-        build = GraphedLoop(build_body, self.device, clone=False)
-        return build, GraphedLoop(update_body, self.device, after=build)
+        return CarriedLoop(build_body, update_body, self.device, len(FIELDS))
 
     def simulate_and_time(self, times: Times) -> None:
         """One timed timestep with the reference's three phases (cu:499-546):
@@ -303,8 +307,20 @@ class Simulator:
         tpusph: the phase waits for the previous step's copy, which
         overlapped this step's build and update, and starts this step's
         copy. A step that overflowed is replayed, its seconds not counted,
-        with doubled capacity and its phases captured again; `iters` counts
-        only steps that stood.
+        with doubled capacity and its phases captured again (the new graphs
+        copy the state in); `iters` counts only steps that stood.
+
+        On a card the state lives in the phases' two buffers
+        (`graphs.CarriedLoop`): a step from the state the previous timed
+        step left reads one buffer and writes the other, with no copy in or
+        clone out; any other state (from `setup()`, `simulate()`, a chunk,
+        or one a caller put back) is copied into the first buffer once,
+        under the span `graph.copy_in`. A tensor handed to `setup()` is
+        never written. `self.state` and `last_aux` afterwards are the
+        graphs' own tensors: they hold this step's state until the next
+        call of `simulate_and_time`, so clone what must outlive it.
+        `get_position()`'s arrays are the fetch's own host tensors, never
+        overwritten.
 
         Spans (`bench/spans.py`), while a profile records: `sim.step` around
         the step, inside it `sim.build` and `sim.update` (each phase's call
@@ -328,14 +344,14 @@ class Simulator:
     def _timed_step(self, times: Times) -> bool:
         """The phases of `simulate_and_time`; False, with nothing added to
         `times`, where the step overflowed."""
-        build, update = self._timed
+        self._fence_fetches()
         t0 = time.perf_counter()
         with span("sim.build", t0) as s:
-            build([getattr(self.state, f) for f in FIELDS])
+            self._timed.build([getattr(self.state, f) for f in FIELDS])
             self._sync()
             t1 = s.end = time.perf_counter()
         with span("sim.update", t1) as s:
-            *fields, oob, ovf = update()
+            *fields, oob, ovf = self._timed.update()
             self._sync()
             t2 = s.end = time.perf_counter()
         if int(ovf) > 0:
@@ -348,6 +364,7 @@ class Simulator:
         with span("sim.copy_start", s.end) as s:
             self._pending_fetch = AsyncPositionFetch(new_state.position, self.cfg.num_particles)
             t3 = s.end = time.perf_counter()
+        self._step_fetch = self._pending_fetch
         times.build_grid += t1 - t0
         times.sph_update += t2 - t1
         times.memcpy += t3 - t2
@@ -356,6 +373,19 @@ class Simulator:
         self.last_aux = StepAux(oob_count=oob, window_overflow=ovf)
         times.iters += 1
         return True
+
+    def _fence_fetches(self) -> None:
+        """Before a timed step writes the phases' state buffers: unless the
+        one copy to the host that may be in flight is the last timed step's,
+        of the state this step reads (every earlier one was waited for),
+        the compute stream waits on the card for every copy started so far,
+        so that no copy reads a buffer the step writes. On the CPU a fetch
+        copies at once."""
+        fetch = self._pending_fetch
+        if self.device.type != "cuda" or (fetch is not None and fetch is self._step_fetch
+                                          and fetch.matches(self.state.position)):
+            return
+        torch.cuda.current_stream(self.device).wait_stream(_side_stream(self.device))
 
     # ------------------------------------------------------ chunked stepping
     def _chunk_fn(self, n_steps: int, pack_pixels=False) -> GraphedLoop:

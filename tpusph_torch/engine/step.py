@@ -55,13 +55,17 @@ class StepAux(NamedTuple):
     window_overflow: torch.Tensor | int
 
 
-def _finish(state: FluidState, force_, density_, pressure, cfg: SimConfig) -> FluidState:
-    """Integrate valid particles; freeze invalid padding slots."""
+def _finish(state: FluidState, force_, density_, pressure, cfg: SimConfig,
+            out: FluidState | None = None) -> FluidState:
+    """Integrate valid particles; freeze invalid padding slots. `out`: the
+    position and velocity are written into its tensors."""
     x, v = integrate(state.position, state.velocity, force_, density_, cfg)
     valid3 = state.valid[:, None]
     return FluidState(
-        position=torch.where(valid3, x, state.position),
-        velocity=torch.where(valid3, v, state.velocity),
+        position=torch.where(valid3, x, state.position,
+                             out=None if out is None else out.position),
+        velocity=torch.where(valid3, v, state.velocity,
+                             out=None if out is None else out.velocity),
         force=force_,
         density=density_,
         pressure=pressure,
@@ -189,17 +193,19 @@ def _force_pass_sorted(sp, sv, rho_s, p_s, key_s, valid_s, starts, cfg: SimConfi
     return f
 
 
-def update_phase(state: FluidState, cl: CellList, cfg: SimConfig):
+def update_phase(state: FluidState, cl: CellList, cfg: SimConfig,
+                 out: FluidState | None = None):
     """Density → forces → integrate on the tile passes, the `cell_list`
     backend's "SPH update" phase (simulator.cu:516-529). Returns (new_state,
-    aux); aux.window_overflow is an int32 device tensor."""
+    aux); aux.window_overflow is an int32 device tensor. `out`: the new
+    state is written into its tensors but `valid`, which is `state`'s."""
     sp = state.position[cl.perm]
     sv = state.velocity[cl.perm]
     rho_s, p_s, ovf = _density_pass_sorted(sp, cl.key_sorted, cl.valid_sorted, cl.starts, cfg)
     f_s = _force_pass_sorted(
         sp, sv, rho_s, p_s, cl.key_sorted, cl.valid_sorted, cl.starts, cfg
     )
-    new_state = _finish(state, *_scatter_back(state, cl, f_s, rho_s, p_s), cfg)
+    new_state = _finish(state, *_scatter_back(state, cl, f_s, rho_s, p_s, out), cfg, out)
     return new_state, StepAux(oob_count=cl.oob_count, window_overflow=ovf + cl.starts_overflow)
 
 
@@ -209,21 +215,26 @@ def step_cell_list(state: FluidState, cfg: SimConfig):
     return update_phase(state, build_phase(state, cfg, histogram=True), cfg)
 
 
-def _scatter_back(state: FluidState, cl: CellList, f_s, rho_s, p_s):
+def _scatter_back(state: FluidState, cl: CellList, f_s, rho_s, p_s,
+                  out: FluidState | None = None):
     """(force, density, pressure) in the caller's particle order: sorted[i]
-    is original[perm[i]]."""
+    is original[perm[i]]; into `out`'s tensors where given."""
     n = state.num_slots
+    force_, density_, pressure = (
+        (f_s.new_empty((n, 3)), rho_s.new_empty(n), p_s.new_empty(n)) if out is None
+        else (out.force, out.density, out.pressure))
     return (
-        f_s.new_empty((n, 3)).index_copy_(0, cl.perm, f_s),
-        rho_s.new_empty(n).index_copy_(0, cl.perm, rho_s),
-        p_s.new_empty(n).index_copy_(0, cl.perm, p_s),
+        force_.index_copy_(0, cl.perm, f_s),
+        density_.index_copy_(0, cl.perm, rho_s),
+        pressure.index_copy_(0, cl.perm, p_s),
     )
 
 
-def update_phase_kernels(state: FluidState, cl: CellList, cfg: SimConfig):
+def update_phase_kernels(state: FluidState, cl: CellList, cfg: SimConfig,
+                         out: FluidState | None = None):
     """Density → forces → integrate, the timed "SPH update" phase
     (simulator.cu:516-529), on the density and force kernels. Returns
-    (new_state, aux)."""
+    (new_state, aux); `out` as in `update_phase`."""
     xyz = state.position[cl.perm].T.contiguous()  # (3, n) sorted rows
     vxyz = state.velocity[cl.perm].T.contiguous()
     valid_s = cl.valid_sorted
@@ -231,7 +242,7 @@ def update_phase_kernels(state: FluidState, cl: CellList, cfg: SimConfig):
     rho_s, p_s = masked_pressure(raw, valid_s, cfg)
     f_s = force(*xyz, *vxyz, rho_s, p_s, cl.key_sorted, cl.starts, cfg)
     f_s = torch.where(valid_s, f_s, 0.0).T
-    new_state = _finish(state, *_scatter_back(state, cl, f_s, rho_s, p_s), cfg)
+    new_state = _finish(state, *_scatter_back(state, cl, f_s, rho_s, p_s, out), cfg, out)
     aux = StepAux(oob_count=cl.oob_count, window_overflow=cl.starts_overflow)
     return new_state, aux
 
