@@ -39,7 +39,11 @@ and `DistSimulator` on one rank as z-slabs and as a (1, 1, 1) brick grid,
 against the same steps on the CPU. `bench_torch`'s gates pass on the card
 and its timed run launches each kernel; `fields_profile`'s stages compose
 to the fields step bit for bit; `build_bench`'s three starts tables agree;
-`graft_entry.entry()`'s step on the card matches the CPU's at 1e-4. Each
+`graft_entry.entry()`'s step on the card matches the CPU's at 1e-4. At a
+clustered state with the pressure live (`torch_pressured.py`) the density
+and force kernels match their plain versions; the force kernel's walk
+counter equals `force_walk` exactly on every kind of state, its forces are
+the same bits with and without it, and carried timed steps sum it. Each
 graphed entry point (`make_step`, `make_impulse`, the one-rank slab and
 brick steps, timed stages and runs) replays a CUDA graph bit for bit
 equal to its eager path, with sync debug mode "error" around the
@@ -49,6 +53,9 @@ With peers: a segmented loop replays its chain of graphs and transports,
 and two ranks on the card over gloo (a slab line, a (2, 1, 1) brick grid)
 replay each graphed entry point's segments bit for bit equal to its eager
 path, each kernel once a step."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -61,6 +68,9 @@ from tpusph_torch.engine.simulator import Simulator
 from tpusph_torch.engine.step import build_phase, make_step
 from tpusph_torch.kernels import fused, probes, qrank
 from tpusph_torch.physics.kernels import pressure_from_density
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_pressured import clustered_state  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -252,9 +262,9 @@ def test_density_and_force_kernels_equal_plain(dev, kind):
 
 
 def _force_atol(kind, cfg, cl, ref):
-    """1e-4, or on the dense blob the float32 floor of its sums (see
-    test_density_and_force_kernels_equal_plain)."""
-    if not kind.startswith("blob"):
+    """1e-4, or on the dense blob and the pressured clusters the float32
+    floor of their sums (see test_density_and_force_kernels_equal_plain)."""
+    if not kind.startswith("blob") and kind != "pressured":
         return 1e-4
     _, count = fused.windows(cl.key_sorted, cl.starts, cfg)
     k = float(count.sum(dim=1).max())
@@ -316,6 +326,100 @@ def test_tiled_density_takes_fields_off_16_bytes(dev):
     assert torch.equal(got, fused.density(*xyz, cl.key_sorted, cl.starts, cfg))
     assert torch.equal(
         got, fused.density_baseline(shifted, xyz[1], xyz[2], cl.key_sorted, cl.starts, cfg))
+
+
+def _pressured_inputs(dev, steps):
+    """Sorted rows, keys and starts of the clustered state of
+    `torch_pressured.py` at 8,192 after `steps` steps on the card: clusters
+    of 64 within 0.2 h of lattice points h apart, every particle pressured
+    at step 0 and the clusters merging under pressure after."""
+    cfg, st = clustered_state(8192, device=dev)
+    step = make_step(cfg, "kernels", dev)
+    for _ in range(steps):
+        st, _ = step(st)
+    g = torch.Generator(device=dev).manual_seed(2)
+    st.velocity.add_(torch.randn(st.velocity.shape, generator=g, device=dev) * 0.1)
+    cl = build_phase(st, cfg)
+    xyz = st.position[cl.perm].T.contiguous()
+    vxyz = st.velocity[cl.perm].T.contiguous()
+    return cfg, cl, xyz, vxyz
+
+
+def _pressure(raw, cl, cfg):
+    rho, p = pressure_from_density(raw, cfg)
+    return torch.where(cl.valid_sorted, rho, 1.0), torch.where(cl.valid_sorted, p, 0.0)
+
+
+@pytest.mark.parametrize("steps", [0, 5])
+def test_kernels_equal_plain_under_pressure(dev, steps):
+    """The density and force kernels against their plain versions at the
+    force kernel's pressure path: most targets have p > 0 and the pair
+    terms of each cluster cancel, so the force is held at the float32 floor
+    of its sums, as on the dense blob."""
+    cfg, cl, xyz, vxyz = _pressured_inputs(dev, steps)
+    key, starts = cl.key_sorted, cl.starts
+    raw = fused.density(*xyz, key, starts, cfg)
+    torch.testing.assert_close(raw, fused.density_plain(*xyz, key, starts, cfg), rtol=1e-5, atol=0)
+    rho, p = _pressure(raw, cl, cfg)
+    assert int((p > 0).sum()) > key.numel() // 4
+    args = (*xyz, *vxyz, rho, p, key, starts, cfg)
+    ref = fused.force_plain(*args)
+    torch.testing.assert_close(fused.force(*args), ref, rtol=1e-4,
+                               atol=_force_atol("pressured", cfg, cl, ref))
+
+
+@pytest.mark.parametrize("kind", ["grid", "random", "blob", "ragged", "pressured"])
+def test_force_walk_counter_equals_the_plain_count(dev, kind):
+    """The kernel's walk counter equals `force_walk` exactly (candidates,
+    pressured targets, the heaviest block), and the forces with the counter
+    equal those without it bit for bit."""
+    if kind == "pressured":
+        cfg, cl, xyz, vxyz = _pressured_inputs(dev, 0)
+    else:
+        cfg, cl, xyz, vxyz = _sorted_inputs(kind, dev)
+    key, starts = cl.key_sorted, cl.starts
+    rho, p = _pressure(fused.density(*xyz, key, starts, cfg), cl, cfg)
+    args = (*xyz, *vxyz, rho, p, key, starts, cfg)
+    walk = torch.zeros(len(fused.WALK), dtype=torch.int64, device=dev)
+    f = fused.force(*args, walk=walk)
+    want = fused.force_walk(key, starts, p, cfg)
+    assert torch.equal(walk, want), (walk.tolist(), want.tolist())
+    assert torch.equal(f, fused.force(*args))
+    if kind in ("blob", "pressured"):
+        assert int(want[1]) > 0
+
+
+def test_timed_steps_count_the_walk_on_the_card(dev):
+    """Six carried timed steps from the clustered state under a profile:
+    the counters `force.*` are the sums of each pre-step state's
+    `force_walk`, the copy of each step's counter riding its fetch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusph_torch.bench import spans
+    from tpusph_torch.engine.step import masked_pressure
+
+    cfg, start = clustered_state(8192, device=dev)
+    sim = Simulator(cfg, device=dev)
+    sim.setup(start)
+    spans.reset()
+    before = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(6):
+            before.append(type(sim.state)(*(getattr(sim.state, f).clone() for f in _FIELDS)))
+            sim.simulate_and_time(Times())
+        sim.get_position()
+    counts = spans.counts()
+    spans.reset()
+    want = torch.zeros(len(fused.WALK), dtype=torch.int64, device=dev)
+    for st in before:
+        cl = build_phase(st, cfg)
+        xyz = st.position[cl.perm].T.contiguous()
+        _, p = masked_pressure(fused.density(*xyz, cl.key_sorted, cl.starts, cfg),
+                               cl.valid_sorted, cfg)
+        want += fused.force_walk(cl.key_sorted, cl.starts, p, cfg)
+    assert [counts[f"force.{k}"] for k in fused.WALK] == want.tolist()
+    assert counts["force.blocks"] == 6 * fused.force_blocks(8192)
+    assert counts["force.pressured"] > 0
 
 
 def test_kernels_repeat_bit_for_bit(dev):
@@ -421,8 +525,9 @@ def test_carried_timed_steps_equal_the_cloned_path(dev):
     every field) equals the cloned path's bit for bit; the steps alternate
     between the two buffers, the first copies `setup()`'s state in and the
     other eleven carry (`graph.carried`); once both pairs are captured a
-    carried step's host enqueues one copy, the fetch's, and no clone (one
-    profile a step); `setup()`'s tensors are unchanged; each
+    carried step's host enqueues only the fetch's copies, of the positions
+    and, as a profile records, of the force's walk counter beside them, and
+    no clone (one profile a step); `setup()`'s tensors are unchanged; each
     `get_position()` array keeps its values through later steps."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -446,7 +551,7 @@ def test_carried_timed_steps_equal_the_cloned_path(dev):
     assert sources == [None] + [1, 0] * 5 + [1]
     assert spans.counts()["graph.carried"] == steps - 1
     assert spans.totals()["graph.copy_in"].count == 1 and "graph.clone_out" not in spans.totals()
-    assert ops[2:] == [(1, 0)] * (steps - 2), ops
+    assert ops[2:] == [(2, 0)] * (steps - 2), ops
     spans.reset()
     for g, h in zip(got, held):
         np.testing.assert_array_equal(g, h)

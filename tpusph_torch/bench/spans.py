@@ -27,7 +27,9 @@ the record function only while one records). For work that runs once per
 graph, outside any hot path: the capture-time spans, which set-up
 measurements read.
 
-`count(name, n)` adds `n` to a counter while a profile records.
+`count(name, n)` adds `n` to a counter while a profile records;
+`recording()` says whether one does, for a counter whose value costs
+something to read.
 
 `totals()` gives each name's count, seconds and self seconds (the duration
 less what its child spans cover), over every span closed since `reset()`;
@@ -133,6 +135,11 @@ class _Span:
         return None
 
 
+def recording() -> bool:
+    """True while a profile records: spans and counters are kept."""
+    return _profiler._is_profiler_enabled
+
+
 def span(name: str, start: float | None = None, always: bool = False):
     """A span of `name` around the block while a profile records (and with
     `always`, also while none does); else the shared null context."""
@@ -144,7 +151,7 @@ def span(name: str, start: float | None = None, always: bool = False):
 
 def count(name: str, n: int) -> None:
     """Add `n` to the counter `name` while a profile records."""
-    if _profiler._is_profiler_enabled:
+    if recording():
         _counts[name] = _counts.get(name, 0) + n
 
 

@@ -66,7 +66,9 @@
 // still reads.
 //
 // No capacity: every window is walked to its end, so nothing can overflow.
-// No atomics and no cross-block step: results repeat bit for bit.
+// No atomics and no cross-block step in the sums: results repeat bit for
+// bit. The force's walk counter (below) is the one place with atomics: it
+// counts, and touches no sum.
 // Distances use the exact displacement form dx*dx + dy*dy + dz*dz in fp32
 // on the CUDA cores; the |t|^2 + |c|^2 - 2 t.c identity on tensor cores
 // loses the 1e-4 density budget to cancellation (fused.py:30-33).
@@ -406,6 +408,35 @@ __global__ void __launch_bounds__(kTile, kBlocksPerSm)
   if (i < n) rho[i] = live ? scale * acc : 0.0f;
 }
 
+// The block's part of the force's walk counter: its threads' candidates
+// `rows` and pressured targets, summed by warp and then by block, added to
+// walk[0] and walk[1], and its candidates as a max into walk[2].
+__device__ __forceinline__ void count_walk(unsigned rows, bool pressured,
+                                           unsigned long long* __restrict__ walk) {
+  __shared__ unsigned warp_rows[kWarps];
+  __shared__ unsigned warp_pressured[kWarps];
+  const int t = threadIdx.x;
+  rows = __reduce_add_sync(kFullMask, rows);
+  const unsigned live = __reduce_add_sync(kFullMask, pressured ? 1u : 0u);
+  if ((t & 31) == 0) {
+    warp_rows[t >> 5] = rows;
+    warp_pressured[t >> 5] = live;
+  }
+  __syncthreads();
+  if (t == 0) {
+    unsigned long long total = 0;
+    unsigned long long targets = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      total += warp_rows[w];
+      targets += warp_pressured[w];
+    }
+    atomicAdd(walk, total);
+    atomicAdd(walk + 1, targets);
+    atomicMax(walk + 2, total);
+  }
+}
+
 // Pressure plus viscosity force on each sorted target, the per-pair
 // arithmetic of physics/kernels.py pair_force with both of its guards:
 //   pressure  (r^2 <= h^2, r >= eps): -m (p_i + p_j) / (2 rho_j) * grad,
@@ -416,11 +447,20 @@ __global__ void __launch_bounds__(kTile, kBlocksPerSm)
 // A pair within h takes a = 1/(2 rho_j) (one divide) and p_j a, and
 // r = r^2 * rsqrt(r^2), a few ulps from the exact form. r^2 = 0 gives
 // r = NaN, which fails r >= eps as the self pair must.
+//
+// With Count, the walk counter `walk` (int64[3], zeroed by the caller)
+// takes, over the launch, the candidates the targets walk (their 9
+// windows' lengths, from load_windows), the live targets with p_i > 0, and
+// as a max the candidates of the heaviest block: one warp and block
+// reduction after the windows are loaded, then one atomic of each from the
+// block's first thread. Nothing is added a pair, and the sums are those of
+// the kernel without Count, bit for bit.
+template <bool Count>
 __global__ void __launch_bounds__(kTile, kBlocksPerSm)
     force_tile_kernel(Fields<8> fs, const int* __restrict__ key,
                       const int* __restrict__ starts, int n, int C, int nc,
                       float h, float h2, float eps, float m, float vk, float mu,
-                      float* __restrict__ f) {
+                      float* __restrict__ f, unsigned long long* __restrict__ walk) {
   __shared__ Windows w;
   const int t = threadIdx.x;
   const int i = blockIdx.x * kTile + t;
@@ -434,7 +474,8 @@ __global__ void __launch_bounds__(kTile, kBlocksPerSm)
   const float vzi = live ? fs.p[5][i] : 0.0f;
   const float pi = live ? fs.p[7][i] : 0.0f;
   const float visc_c = 2.0f * ((mu * m) * vk);
-  load_windows(w, starts, k, live, C, nc);
+  const unsigned rows = load_windows(w, starts, k, live, C, nc);
+  if constexpr (Count) count_walk(rows, live && pi > 0.0f, walk);
   float ax = 0.0f;
   float ay = 0.0f;
   float az = 0.0f;
@@ -495,15 +536,23 @@ extern "C" int tpusph_density(const float* x, const float* y, const float* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `walk`: the walk counter (int64[3], zeroed by the caller), or null to
+// count nothing.
 extern "C" int tpusph_force(const float* x, const float* y, const float* z,
                             const float* vx, const float* vy, const float* vz,
                             const float* rho, const float* p, const int* key,
                             const int* starts, int n, int C, int nc, float h,
                             float h2, float eps, float m, float vk, float mu,
-                            float* f, cudaStream_t stream) {
+                            float* f, unsigned long long* walk, cudaStream_t stream) {
   using namespace tpusph;
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  force_tile_kernel<<<tiles(n), kTile, 0, stream>>>(
-      Fields<8>{{x, y, z, vx, vy, vz, rho, p}}, key, starts, n, C, nc, h, h2, eps, m, vk, mu, f);
+  const Fields<8> fs{{x, y, z, vx, vy, vz, rho, p}};
+  if (walk == nullptr) {
+    force_tile_kernel<false><<<tiles(n), kTile, 0, stream>>>(fs, key, starts, n, C, nc, h, h2,
+                                                             eps, m, vk, mu, f, walk);
+  } else {
+    force_tile_kernel<true><<<tiles(n), kTile, 0, stream>>>(fs, key, starts, n, C, nc, h, h2,
+                                                            eps, m, vk, mu, f, walk);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from tpusph_torch.bench.spans import span
+from tpusph_torch.bench.spans import count, recording, span
 from tpusph_torch.bench.times import Times
 from tpusph_torch.core.config import SimConfig
 from tpusph_torch.core.init import init_state
@@ -61,6 +61,7 @@ from tpusph_torch.engine.step import (
     update_phase_kernels,
 )
 from tpusph_torch.interact.impulse import apply_kick, click_cell_from_px, click_in_box, make_impulse
+from tpusph_torch.kernels.fused import WALK, force_blocks
 from tpusph_torch.viz.project import project_bitmap, project_pixels_packed
 
 GROWTH_RETRIES = 8  # capacity doublings before a step is given up
@@ -81,17 +82,29 @@ class AsyncPositionFetch:
     in place (the timed phases' state buffers) is guarded by its writer
     (`Simulator._fence_fetches`).
 
-    On a CPU tensor the copy is made at once, and `wait()` returns it."""
+    On a CPU tensor the copy is made at once, and `wait()` returns it.
 
-    def __init__(self, position: torch.Tensor, num_particles: int):
+    `walk`: the force pass's walk counter of the step (int64[3],
+    `kernels.fused.WALK`), copied in the same call; the first `wait()` adds
+    it to the counters `force.candidates`, `force.pressured` and
+    `force.block_max`, and `blocks`, the force launch's blocks, to
+    `force.blocks` (`bench/spans.py`, kept while a profile records)."""
+
+    def __init__(self, position: torch.Tensor, num_particles: int,
+                 walk: torch.Tensor | None = None, blocks: int = 0):
         self._src = position
         self._host: np.ndarray | None = None
         self._done: torch.cuda.Event | None = None
+        self._walk: torch.Tensor | None = None  # its host copy, until counted
+        self._blocks = blocks
         self.buffer: torch.Tensor | None = None  # pinned host tensor (CUDA)
+        srcs = [position[:num_particles]] + ([] if walk is None else [walk])
         if position.device.type == "cuda":
-            (self.buffer,), self._done = _copy_to_host([position[:num_particles]])
+            (self.buffer, *walk_host), self._done = _copy_to_host(srcs)
+            self._walk = walk_host[0] if walk_host else None
         else:
-            self._host = position[:num_particles].numpy().copy()
+            self._host = srcs[0].numpy().copy()
+            self._walk = None if walk is None else walk.clone()
 
     def matches(self, position: torch.Tensor) -> bool:
         """True when this fetch copies exactly `position` (by identity)."""
@@ -101,6 +114,11 @@ class AsyncPositionFetch:
         if self._host is None:
             self._done.synchronize()
             self._host = self.buffer.numpy()
+        if self._walk is not None:
+            for name, n in zip(WALK, self._walk.tolist()):
+                count(f"force.{name}", n)
+            count("force.blocks", self._blocks)
+            self._walk = None
         return self._host
 
 
@@ -285,18 +303,24 @@ class Simulator:
         CellList fields` and `update() -> [*state fields, oob, overflow]`,
         the second reading the first's inputs and outputs in place. One
         CUDA-graph replay each on a card, the state carried from step to
-        step in the graphs' own tensors (`graphs.CarriedLoop`)."""
+        step in the graphs' own tensors (`graphs.CarriedLoop`). On the
+        kernels the update also returns the force pass's walk counter
+        (`kernels.fused.force`), zeroed inside the update; the tile passes
+        return None in its place."""
         cfg, tiles = self.cfg, self.backend == "cell_list"
-        update_fn = update_phase if tiles else update_phase_kernels
 
         def build_body(fields: list) -> list:
             return list(build_phase(FluidState(*fields), cfg, histogram=tiles))
 
         def update_body(inputs: list, out: list | None = None) -> list:
             fields, cl = inputs[: len(FIELDS)], CellList(*inputs[len(FIELDS):])
-            new, aux = update_fn(FluidState(*fields), cl, cfg,
-                                 None if out is None else FluidState(*out))
-            return [*(getattr(new, f) for f in FIELDS), *aux]
+            state, out = FluidState(*fields), None if out is None else FluidState(*out)
+            if tiles:
+                (new, aux), walk = update_phase(state, cl, cfg, out), None
+            else:
+                walk = torch.zeros(len(WALK), dtype=torch.int64, device=state.device)
+                new, aux = update_phase_kernels(state, cl, cfg, out, walk=walk)
+            return [*(getattr(new, f) for f in FIELDS), *aux, walk]
 
         return CarriedLoop(build_body, update_body, self.device, len(FIELDS))
 
@@ -329,7 +353,10 @@ class Simulator:
         with `times`, so they sum to its fields over steps that stood. A
         step that overflowed leaves its `sim.build` and `sim.update` spans,
         and its recapture `graph.warmup` and `graph.record`, though `times`
-        drops its seconds."""
+        drops its seconds. On the kernels, while a profile records, the
+        step's copy also takes the force pass's walk counter, which the
+        counters `force.*` take when the copy is waited for
+        (`AsyncPositionFetch`)."""
         assert self.state is not None, "call setup() first"
         if self.backend not in ("kernels", "cell_list"):
             raise ValueError("timed mode needs the 'kernels' or 'cell_list' backend")
@@ -351,7 +378,7 @@ class Simulator:
             self._sync()
             t1 = s.end = time.perf_counter()
         with span("sim.update", t1) as s:
-            *fields, oob, ovf = self._timed.update()
+            *fields, oob, ovf, walk = self._timed.update()
             self._sync()
             t2 = s.end = time.perf_counter()
         if int(ovf) > 0:
@@ -362,7 +389,10 @@ class Simulator:
             if self._pending_fetch is not None:
                 self._position_host = self._pending_fetch.wait()
         with span("sim.copy_start", s.end) as s:
-            self._pending_fetch = AsyncPositionFetch(new_state.position, self.cfg.num_particles)
+            self._pending_fetch = AsyncPositionFetch(
+                new_state.position, self.cfg.num_particles,
+                walk if walk is not None and recording() else None,
+                force_blocks(new_state.num_slots))
             t3 = s.end = time.perf_counter()
         self._step_fetch = self._pending_fetch
         times.build_grid += t1 - t0

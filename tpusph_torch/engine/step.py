@@ -231,16 +231,17 @@ def _scatter_back(state: FluidState, cl: CellList, f_s, rho_s, p_s,
 
 
 def update_phase_kernels(state: FluidState, cl: CellList, cfg: SimConfig,
-                         out: FluidState | None = None):
+                         out: FluidState | None = None, walk: torch.Tensor | None = None):
     """Density → forces → integrate, the timed "SPH update" phase
     (simulator.cu:516-529), on the density and force kernels. Returns
-    (new_state, aux); `out` as in `update_phase`."""
+    (new_state, aux); `out` as in `update_phase`. `walk`: the force pass's
+    walk counter (`kernels.fused.force`), None to count nothing."""
     xyz = state.position[cl.perm].T.contiguous()  # (3, n) sorted rows
     vxyz = state.velocity[cl.perm].T.contiguous()
     valid_s = cl.valid_sorted
     raw = density(*xyz, cl.key_sorted, cl.starts, cfg)
     rho_s, p_s = masked_pressure(raw, valid_s, cfg)
-    f_s = force(*xyz, *vxyz, rho_s, p_s, cl.key_sorted, cl.starts, cfg)
+    f_s = force(*xyz, *vxyz, rho_s, p_s, cl.key_sorted, cl.starts, cfg, walk=walk)
     f_s = torch.where(valid_s, f_s, 0.0).T
     new_state = _finish(state, *_scatter_back(state, cl, f_s, rho_s, p_s, out), cfg, out)
     aux = StepAux(oob_count=cl.oob_count, window_overflow=cl.starts_overflow)

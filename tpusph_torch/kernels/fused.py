@@ -42,9 +42,15 @@ from tpusph_torch.kernels.launch import check_tensor, on_cpu, plain_version, str
 # candidates, else it reads device memory, whose loads hit L1 (neighbouring
 # targets share most of their windows). The fastest mean over steps 0, 20,
 # 50 and 100 of 262,144 grid init on an H100 (PERF.md). The force
-# kernel takes blocks of 128 targets and never stages.
+# kernel takes blocks of FORCE_TILE = 128 targets (the same kTile) and never
+# stages.
 DENSITY_TILE, DENSITY_CHUNK, DENSITY_STAGE_MIN = 128, 1024, 96
 PIECES = 16
+FORCE_TILE = 128
+# The force kernel's walk counter, int64[3] (`force(..., walk=)`): what it
+# holds, in order. With the launch's blocks (`force_blocks`) these are the
+# four numbers of a counted force pass.
+WALK = ("candidates", "pressured", "block_max")
 
 
 def column_offsets(cfg: SimConfig) -> list[int]:
@@ -273,7 +279,31 @@ def force_plain(
     return out
 
 
-def _launch_force(entry, fields, key_sorted, starts, cfg: SimConfig):
+def force_blocks(n: int) -> int:
+    """Blocks of FORCE_TILE targets the force kernel launches over n rows."""
+    return -(-n // FORCE_TILE)
+
+
+def force_walk(key_sorted, starts, p, cfg: SimConfig) -> torch.Tensor:
+    """int64[3] of WALK: what the force kernel's walk counter takes over the
+    sorted rows, from its windows alone: the candidates its targets walk
+    (each live target's 9 window lengths), the live targets (key below
+    num_cells) with p > 0, and the candidates of its heaviest block of
+    FORCE_TILE consecutive targets."""
+    n = key_sorted.shape[0]
+    if n == 0:
+        return torch.zeros(len(WALK), dtype=torch.int64, device=key_sorted.device)
+    per_target = windows(key_sorted, starts, cfg)[1].sum(dim=1)
+    pressured = ((key_sorted < cfg.num_cells) & (p > 0)).sum()
+    blocks = force_blocks(n)
+    per_block = torch.nn.functional.pad(per_target, (0, blocks * FORCE_TILE - n))
+    block_max = per_block.view(blocks, FORCE_TILE).sum(dim=1).max()
+    return torch.stack([per_target.sum(), pressured, block_max])
+
+
+def _launch_force(entry, fields, key_sorted, starts, cfg: SimConfig, *extra):
+    """`entry` on the fields; `extra`: its arguments between f and the
+    stream (`tpusph_force`'s walk counter)."""
     dev, n = _check_sorted_inputs(fields, key_sorted, starts, cfg)
     if on_cpu(dev):
         with plain_version():
@@ -286,22 +316,36 @@ def _launch_force(entry, fields, key_sorted, starts, cfg: SimConfig):
             *(t.data_ptr() for t in fields.values()),
             key_sorted.data_ptr(), starts.data_ptr(), n, cfg.num_cells_per_dim,
             cfg.num_cells, f32(cfg.h), f32(cfg.h2), f32(cfg.eps), f32(cfg.mass),
-            f32(cfg.v_kernel_coeff), f32(cfg.viscosity), f.data_ptr(), stream_of(dev),
+            f32(cfg.v_kernel_coeff), f32(cfg.viscosity), f.data_ptr(), *extra, stream_of(dev),
         )
     cuda_build.check(err, entry)
     return f
 
 
-def force(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig) -> torch.Tensor:
+def force(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig,
+          walk: torch.Tensor | None = None) -> torch.Tensor:
     """Force on each sorted target, f32[3, n] (see `force_plain`). Launches
     `tpusph_force` for CUDA tensors: blocks of 128 targets reading device
     memory; a pair within h takes 1/(2ρ_j) once (one divide where
     `force_baseline` takes three) and r from rsqrt, within a few ulps of
-    the baseline's sums."""
+    the baseline's sums.
+
+    `walk`: an int64[3] counter on the rows' device, zeroed by the caller,
+    to which the pass adds its walk (WALK, `force_walk`): on a card the
+    kernel's blocks count it beside their sums, on the CPU `force_walk`
+    computes it. None counts nothing, and the forces are the same bits."""
     fields = dict(x=x, y=y, z=z, vx=vx, vy=vy, vz=vz, rho=rho, p=p)
-    f = _launch_force("tpusph_force", fields, key_sorted, starts, cfg)
+    if walk is not None:
+        check_tensor("walk", walk, torch.int64, key_sorted.device, (len(WALK),))
+    f = _launch_force("tpusph_force", fields, key_sorted, starts, cfg,
+                      None if walk is None else walk.data_ptr())
     if f.is_cuda:
         force.launches += 1
+    elif walk is not None:
+        with plain_version():
+            got = force_walk(key_sorted, starts, p, cfg)
+            walk[:2] += got[:2]
+            walk[2:] = torch.maximum(walk[2:], got[2:])
     return f
 
 

@@ -42,9 +42,9 @@ SIGNATURES = {
     # x, y, z, key, starts, n, C, num_cells, h2, scale, rho, stream
     "tpusph_density": [P, P, P, P, P, I, I, I, F, F, P, P],
     # x, y, z, vx, vy, vz, rho, p, key, starts, n, C, num_cells, h, h2, eps,
-    # mass, vk, mu, f (3·n field-major), stream
-    "tpusph_force": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
-    # the first design (sph_baseline.cu), as above
+    # mass, vk, mu, f (3·n field-major), walk (int64[3] or null), stream
+    "tpusph_force": [P] * 10 + [I, I, I] + [F] * 6 + [P, P, P],
+    # the first design (sph_baseline.cu), as above without walk
     "tpusph_density_baseline": [P, P, P, P, P, I, I, I, F, F, P, P],
     "tpusph_force_baseline": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
     "tpusph_qrank_baseline": [P, I, P, I, I, P, P],
