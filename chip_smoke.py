@@ -35,7 +35,9 @@ Phases, each of which raises on failure (exit code 1):
      rows / 32 x the sum over warps and columns of the warp's longest
      window) and the tiled density's staging overhead (rows staged, from
      `fused.chunk_walk`, / rows of the union of each staging block's
-     windows; the tiled force stages nothing);
+     windows; the tiled force stages nothing); the force's packing pass
+     (`fused.force_pack`) equal to `fused.force_pack_plain` bit for bit at
+     each state, and timed alone (the tiled force's time includes it);
   4. parity at N = 4096: `bench_torch.verify_parity` on the card (10
      chained fields steps against 10 `cell_list` steps, multiset-compared,
      density rtol 1e-4, positions atol 1e-4; one `cell_list` step and one
@@ -259,7 +261,10 @@ Phases, each of which raises on failure (exit code 1):
         nodes in the 100-step run graph, the runs equal bit for bit.
 The probes' bounds are their FMA (2 flops) or operation counts at 67
 TFLOP/s. Each path's kernel launch counts are set to 0 just before it and
-read just after. A wrapper counts where it launches its kernel; inside a CUDA graph
+read just after; the main path's kernels are the rank, density, force
+packing (`fused.force_pack`) and force kernels, and every path launches
+one packing pass for each force launch. A wrapper counts where it
+launches its kernel; inside a CUDA graph
 (phase 8) the launches recorded at capture are what each replay adds
 (`tpusph_torch/engine/graphs.py`). It then prints one JSON line of
 per-kernel results (the main path's launches, the launches in one replay
@@ -268,7 +273,9 @@ of the 100-step chain, and for rank, density and force the numbers at step
 launches and phase 13's under "dist_launches", bench_torch's timed run's under
 "bench_launches", one replay of each graphed entry point of phase 14 and
 of the four-rank steps of phase 15 under "graph_launches", phase 16b's
-replayed run under "branch_launches"; set_if's row with its launches in
+replayed run under "branch_launches"; the packing pass's launches and its
+largest difference from its plain version under the force's
+"pack_launches" and "pack_max_abs_err"; set_if's row with its launches in
 16b's run and its time with the body run under "body_ms") and, last, one
 JSON line {"ok": true, "device": {...}}.
 """
@@ -329,6 +336,9 @@ BRANCH_PREDS = (-2, 0, 1, 5)  # phase 16a: set_if's predicates, held against its
 BRANCH_NODES = 100  # phase 16a: if nodes in the graph that times set_if
 KERNEL_STATES = (0, 20, 100)  # steps of 262,144 grid init at which phase 3 checks and times
 TIMED_STATE = 20  # the state of each kernel row's own numbers in the JSON line
+# the main path's kernels, in the order of `main_kernels()`: the force's
+# packing pass (`fused.force_pack`) runs once before each force launch
+KERNEL_NAMES = ("rank", "density", "pack", "force")
 # H100 SXM peaks (NVIDIA's data sheet) for the bounds
 MEM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -339,6 +349,19 @@ def require(ok, msg: str) -> None:
     """Fail the run (an `assert` would vanish under `python -O`)."""
     if not ok:
         raise RuntimeError(msg)
+
+
+def main_kernels() -> tuple:
+    """The main path's kernel wrappers, named by KERNEL_NAMES."""
+    from tpusph_torch.kernels import fused, qrank
+
+    return (qrank.rank_queries, fused.density, fused.force_pack, fused.force)
+
+
+def hold_packed(launches: dict, what: str) -> None:
+    """One packing pass for each force launch ({name: launches})."""
+    require(launches["pack"] == launches["force"],
+            f"{what}: {launches['pack']} force packings for {launches['force']} force launches")
 
 
 def kernel_name(line: str) -> str:
@@ -441,7 +464,7 @@ def kernel_phase(card: str, dev) -> dict:
                         max_abs_diff_baseline=0.0),
         "force": dict(route="cuda", source="tpusph_torch/csrc/sph.cu",
                       replaces="tpusph/pallas/fused.py:1540", max_abs_err=0.0,
-                      max_abs_diff_baseline=0.0),
+                      max_abs_diff_baseline=0.0, pack_max_abs_err=0.0),
     }
     for r in results.values():
         r["by_step"] = {}
@@ -493,6 +516,13 @@ def kernel_phase(card: str, dev) -> dict:
         rho, p = pressure_from_density(dk, cfg)
         rho = torch.where(cl.valid_sorted, rho, 1.0)
         p = torch.where(cl.valid_sorted, p, 0.0)
+        # the force's packing pass against its plain version, bit for bit
+        for got, want in zip(fused.force_pack(*xyz, *vxyz, rho, p),
+                             fused.force_pack_plain(*xyz, *vxyz, rho, p)):
+            require(torch.equal(got, want),
+                    f"step {label}: the force's packed rows differ from force_pack_plain")
+            results["force"]["pack_max_abs_err"] = max(
+                results["force"]["pack_max_abs_err"], float((got - want).abs().max()))
         fk = fused.force(*xyz, *vxyz, rho, p, key, starts, cfg)
         fb = fused.force_baseline(*xyz, *vxyz, rho, p, key, starts, cfg)
         fp = fused.force_plain(*xyz, *vxyz, rho, p, key, starts, cfg)
@@ -512,7 +542,8 @@ def kernel_phase(card: str, dev) -> dict:
         _, within, apart = fused.pair_counts(*xyz, key, starts, cfg)
         _, count = fused.windows(key, starts, cfg)
         print(f"step {label}: ranks equal (cells, unsorted, repeats and above num_cells, "
-              f"off 16 bytes; new and baseline); density max|err| "
+              f"off 16 bytes; new and baseline); the force's packed rows equal their plain "
+              f"version bit for bit; density max|err| "
               f"{float((dk - dp).abs().max()):.3e} (max rho {float(dk.max()):.3f}); "
               f"force max|err| {float((fk - fp).abs().max()):.3e} "
               f"(max |f| {float(fk.abs().max()):.3f}); max |new - baseline| density "
@@ -559,6 +590,11 @@ def kernel_phase(card: str, dev) -> dict:
                   f"{cand / row['baseline_ms'] / 1e6:.2f} Gpair/s (N={N_MAIN}; {card})")
         results["density"]["by_step"][label]["candidate_pairs"] = cand
         results["force"]["by_step"][label].update(candidate_pairs=cand, force_pairs=apart)
+        # the force's packing pass alone (part of the tiled force's time above)
+        pack_ms = graph_ms(lambda: fused.force_pack(*xyz, *vxyz, rho, p))
+        results["force"]["by_step"][label]["pack_ms"] = pack_ms
+        print(f"time force packing at step {label}: {pack_ms:.4f} ms of the tiled force's "
+              f"{results['force']['by_step'][label]['ms']:.4f} (N={N_MAIN}; {card})")
 
         def rank_turns(q):
             return [graph_ms(lambda: fn(key, q, nc))
@@ -782,14 +818,13 @@ def dist_rank(comm, payload: dict) -> None:
     from tpusph_torch.core.config import tuned_config
     from tpusph_torch.core.init import init_state
     from tpusph_torch.dist import sharded
-    from tpusph_torch.kernels import fused, qrank
 
     n = payload["n"]
     cfg = tuned_config(n)
     dcfg = sharded.DistConfig(**payload["dcfg"])
     dev = comm.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    kernels = (qrank.rank_queries, fused.density, fused.force)
+    kernels = main_kernels()
     state = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
     occupancy = int(state.valid.sum())
     step = sharded.make_sharded_step(cfg, dcfg, comm)
@@ -825,7 +860,7 @@ def dist_rank(comm, payload: dict) -> None:
     for k, aux in enumerate(auxs):
         hold_clean(aux, n, f"rank {comm.rank} step {k}")
         require(int(aux.max_halo_send) > 0, f"step {k}: empty halos on every rank")
-    for name, count in zip(("rank", "density", "force"), launches):
+    for name, count in zip(KERNEL_NAMES, launches):
         require(count == DIST_STEPS,
                 f"rank {comm.rank}: {name} launched {count} times in {DIST_STEPS} steps")
 
@@ -893,7 +928,7 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
     from tpusph_torch.engine.step import fields_from_state
 
     cfg = tuned_config(N_MAIN)
-    names = ("rank", "density", "force")
+    names = KERNEL_NAMES
     ref_fields = fields_from_state(reference)
     whole = init_state(cfg, device="cpu")
     comm = SlabComm(dev)
@@ -965,7 +1000,8 @@ def dist_phase(card: str, kernels, reference, timed_rate: float, chain_rate: flo
     for r in ranks:
         print(f"  rank {r['rank']}: {r['occupancy']} particles, {r['rows']} combined rows, "
               f"ghosts below/above {r['ghosts_below']}/{r['ghosts_above']}, halo rows sent "
-              f"{r['halo_send']}, launches (rank, density, force) {r['launches']}, rank exact, "
+              f"{r['halo_send']}, launches (rank, density, pack, force) {r['launches']}, "
+              f"rank exact, "
               f"density max err {r['density_max_abs_err']:.3e} (rtol 1e-5), force "
               f"{r['force_max_abs_err']:.3e} (rtol 1e-4 atol 1e-4), {r['ms_per_step']:.3f} ms a "
               f"step of which {r['exchange_ms_per_step']:.3f} ms inside the two exchanges "
@@ -993,13 +1029,12 @@ def brick_rank(comm, payload: dict) -> None:
     from tpusph_torch.core.config import tuned_config
     from tpusph_torch.dist import mesh3d
     from tpusph_torch.dist.simulator import DistSimulator
-    from tpusph_torch.kernels import fused, qrank
 
     n = payload["n"]
     cfg = tuned_config(n)
     dev = comm.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    kernels = (qrank.rank_queries, fused.density, fused.force)
+    kernels = main_kernels()
     sim = DistSimulator(cfg, comm, mesh_shape=BRICK_GRID, device=dev)
     sim.setup()
     setup_caps = sim.dcfg
@@ -1047,7 +1082,7 @@ def brick_rank(comm, payload: dict) -> None:
     require(sim.dcfg == caps, f"rank {comm.rank}: capacities grew inside the counted steps")
     for k, aux in enumerate(auxs):
         hold_clean(aux, n, f"brick rank {comm.rank} step {k}")
-    for name, count in zip(("rank", "density", "force"), launches):
+    for name, count in zip(KERNEL_NAMES, launches):
         require(count == DIST_STEPS,
                 f"brick rank {comm.rank}: {name} launched {count} times in {DIST_STEPS} steps")
     halo_rows = {ax: int(rows) for ax, rows in sent.items()}
@@ -1107,7 +1142,7 @@ def brick_phase(card: str, kernels, reference, timed_rate: float, slab: dict, de
     from tpusph_torch.engine.step import fields_from_state
 
     cfg = tuned_config(N_MAIN)
-    names = ("rank", "density", "force")
+    names = KERNEL_NAMES
 
     # a. one brick rank, the whole machinery, every exchange returning zeros
     comm = BrickComm(dev)
@@ -1177,7 +1212,8 @@ def brick_phase(card: str, kernels, reference, timed_rate: float, slab: dict, de
     for r in ranks:
         print(f"  rank {r['rank']} {tuple(r['coords'])}: {r['occupancy']} particles, {r['rows']} "
               f"combined rows, {r['ghosts']} ghost rows, halo rows sent along y {r['halo_rows_y']} "
-              f"and x {r['halo_rows_x']} over {DIST_STEPS} steps, launches (rank, density, force) "
+              f"and x {r['halo_rows_x']} over {DIST_STEPS} steps, launches (rank, density, pack, "
+              f"force) "
               f"{r['launches']}, rank exact, density max err {r['density_max_abs_err']:.3e} "
               f"(rtol 1e-5), force {r['force_max_abs_err']:.3e} (rtol 1e-4 atol 1e-4), "
               f"{r['ms_per_step']:.3f} ms a step of which {r['exchange_ms_per_step']:.3f} ms "
@@ -1204,8 +1240,10 @@ def brick_phase(card: str, kernels, reference, timed_rate: float, slab: dict, de
             print(out, end="")
             require(rc == 0, f"--mesh {mesh} exited {rc}")
             require(out.count("Grid construction") == 1, f"--mesh {mesh}: no Times table")
-            for name, fn in zip(names, kernels):
-                require(fn.launches > 0, f"--mesh {mesh}: the {name} kernel was not launched")
+            mesh_launches = {name: fn.launches for name, fn in zip(names, kernels)}
+            for name, n in mesh_launches.items():
+                require(n > 0, f"--mesh {mesh}: the {name} kernel was not launched")
+            hold_packed(mesh_launches, f"--mesh {mesh}")
             state, _ = load_state(ckpt, "cpu")
         v = state.valid.numpy()
         pos = state.position.numpy()[v]
@@ -1251,7 +1289,7 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
 
     from torch.autograd import DeviceType
 
-    names = ("rank", "density", "force")
+    names = KERNEL_NAMES
 
     def zero():
         for fn in kernels:
@@ -1426,6 +1464,7 @@ def chained_loop(card: str, kernels, timed_rate: float, free_ms: float, dev) -> 
     for name in names:
         require(chunk_launches[name] >= CHUNK_FRAMES,
                 f"{name} launched {chunk_launches[name]} times in chunked free mode")
+    hold_packed(chunk_launches, "chunked free mode")
     print(f"chunked free mode: python -m tpusph_torch {' '.join(argv[:10])}: "
           f"{CHUNK_FRAMES} frames, {chunk_s:.3f} s, {chunk_s / CHUNK_FRAMES * 1e3:.2f} ms "
           f"per frame with set-up and capture, beside {free_ms:.2f} unchunked (phase 7); "
@@ -1441,7 +1480,7 @@ def bench_phase(card: str, kernels, chain_rate: float, dev) -> dict:
     from tpusph_torch import graft_entry
     from tpusph_torch.scripts import build_bench, fields_profile
 
-    names = ("rank", "density", "force")
+    names = KERNEL_NAMES
     kind = torch.cuda.get_device_name(0)
     env = {k: v for k, v in os.environ.items() if not k.startswith(("TPUSPH_", "WORLD_SIZE"))}
     env.update(TPUSPH_BENCH_N=str(N_MAIN), TPUSPH_BENCH_STEPS=str(CHAIN_STEPS))
@@ -1484,6 +1523,7 @@ def bench_phase(card: str, kernels, chain_rate: float, dev) -> dict:
                 os.environ[k] = v
     for name, n in launches.items():
         require(n > 0, f"{name} kernel was not launched by bench_torch's timed run")
+    hold_packed(launches, "bench_torch's timed run")
     print(f"bench_torch in process (gates off): {out.getvalue().strip()}; launches {launches}")
 
     # c. the sharded mode, one rank
@@ -1601,7 +1641,7 @@ def skip_rank(comm, payload: dict) -> None:
     numbers to `payload["out"]/skip<r>.json`."""
     from tpusph_torch.core.config import tuned_config
     from tpusph_torch.dist import sharded
-    from tpusph_torch.kernels import fused, graph_cond, qrank
+    from tpusph_torch.kernels import graph_cond
 
     n = payload["n"]
     cfg = tuned_config(n)
@@ -1613,12 +1653,12 @@ def skip_rank(comm, payload: dict) -> None:
     # branches on the card
     step = sharded.make_sharded_step(cfg, dcfg, comm).eager
     step(start)  # warm-up: loads the library, fills the caches
-    kernels = (qrank.rank_queries, fused.density, fused.force)
+    kernels = main_kernels()
     runs = _skip_runs(step, start, kernels, SKIP_STEPS)
     for mode in ("sort", "skip"):
         for k, (_, aux) in enumerate(runs[mode]["states"]):
             hold_clean(aux, n, f"rank {comm.rank}, {mode}, step {k}")
-        require(runs[mode]["launches"] == [SKIP_STEPS] * 3,
+        require(runs[mode]["launches"] == [SKIP_STEPS] * len(kernels),
                 f"rank {comm.rank}, {mode}: launches {runs[mode]['launches']}")
     require((runs["sort"]["sorts"], runs["sort"]["skips"]) == (SKIP_STEPS, 0),
             f"rank {comm.rank}: TPUSPH_DIST_FORCE_MIGSORT=1 skipped")
@@ -1640,8 +1680,9 @@ def skip_rank(comm, payload: dict) -> None:
                     "the eager step's")
     g_sorts, g_skips = (b - a for a, b in zip(before, sharded.migration_counts()))
     g_launches = [fn.launches for fn in counted]
-    require(g_launches == [SKIP_STEPS] * 4,
-            f"rank {comm.rank}, graphed: launches (rank, density, force, set_if) {g_launches}")
+    require(g_launches == [SKIP_STEPS] * len(counted),
+            f"rank {comm.rank}, graphed: launches (rank, density, pack, force, set_if) "
+            f"{g_launches}")
     loop = graphed.graphs.loops[("step", False, False, False)]
     cond_nodes = [graph_cond.node_counts(item.graph.raw_cuda_graph())["conditional"]
                   for item in loop.chain if hasattr(item, "graph")]
@@ -1675,7 +1716,7 @@ def slice_phase(card: str, kernels, dev) -> dict:
     from tpusph_torch.dist.simulator import DistSimulator
     from tpusph_torch.scripts import scaling_model, slab_census
 
-    names = ("rank", "density", "force")
+    names = KERNEL_NAMES
     cfg = tuned_config(N_MAIN)
     comm = SlabComm(dev)
 
@@ -1693,7 +1734,7 @@ def slice_phase(card: str, kernels, dev) -> dict:
         step(start)
         runs = _skip_runs(step, start, kernels, SKIP_STEPS)
         for mode in runs:
-            require(runs[mode]["launches"] == [SKIP_STEPS] * 3,
+            require(runs[mode]["launches"] == [SKIP_STEPS] * len(kernels),
                     f"13a, {mode}: launches {runs[mode]['launches']}")
         counts = {m: (runs[m]["sorts"], runs[m]["skips"]) for m in runs}
         require(counts == {"sort": (SKIP_STEPS, 0), "skip": (0, SKIP_STEPS)},
@@ -1770,13 +1811,15 @@ def slice_phase(card: str, kernels, dev) -> dict:
     g_skips = sum(r["graphed"]["skips"] for r in ranks)
     require(g_sorts > 0 and g_skips > 0,
             f"13b graphed: sorts {g_sorts}, skips {g_skips}: one branch never ran on the card")
-    launches["set_if"] = {"skip_four_ranks_graphed": [r["graphed"]["launches"][3] for r in ranks]}
+    launches["set_if"] = {
+        "skip_four_ranks_graphed": [r["graphed"]["launches"][-1] for r in ranks]}
     print(f"13b graphed (the device branch, phase 16): {SKIP_STEPS} graphed steps on every rank "
           f"equal its eager steps bit for bit; sorts {g_sorts}, skips {g_skips} on the card; "
           f"chain {' '.join(ranks[0]['graphed']['structure'])}, conditional nodes a segment "
           f"{ranks[0]['graphed']['conditional_nodes']}; (sorts, skips) by rank "
           f"{[(r['graphed']['sorts'], r['graphed']['skips']) for r in ranks]}; launches "
-          f"(rank, density, force, set_if) by rank {[r['graphed']['launches'] for r in ranks]}")
+          f"(rank, density, pack, force, set_if) by rank "
+          f"{[r['graphed']['launches'] for r in ranks]}")
 
     # c. checkpoints: DistSimulator, save after 10 steps, load, 10 more
     sim = DistSimulator(cfg, device=dev)
@@ -1877,7 +1920,7 @@ def graph_phase(card: str, kernels, timed_rate: float, dev) -> dict:
     from tpusph_torch.engine.step import make_step
     from tpusph_torch.interact.impulse import make_impulse
 
-    names = ("rank", "density", "force")
+    names = KERNEL_NAMES
     cfg = tuned_config(N_MAIN)
     print(f"14. graphs, torch {torch.__version__}: a graphed migration branches on the card "
           f"(graphs.device_if, a conditional node of the port's library; phase 16)")
@@ -2121,7 +2164,7 @@ def rank_graph_engine(comm, cfg, dcfg, start, makers, kernels) -> dict:
     transport shares (module docstring). Returns its numbers."""
     make_step, make_timed, make_run = makers
     sync = torch.cuda.synchronize
-    names = ("rank", "density", "force")
+    names = KERNEL_NAMES
     step = make_step(cfg, dcfg, comm)
     build, update = make_timed(cfg, dcfg, comm)
     run = make_run(cfg, dcfg, comm, RANK_GRAPH_STEPS)
@@ -2154,8 +2197,8 @@ def rank_graph_engine(comm, cfg, dcfg, start, makers, kernels) -> dict:
                 f"15 rank {comm.rank}: graphed run({RANK_GRAPH_STEPS}) call {k} differs")
         for aux in (aux_a, aux_c, aux_e):
             hold_clean(aux, cfg.num_particles, f"15 rank {comm.rank} call {k}")
-    require(step_launches == [1, 1, 1], f"15 rank {comm.rank}: a step replay launched "
-            f"{step_launches} (rank, density, force)")
+    require(step_launches == [1] * len(kernels), f"15 rank {comm.rank}: a step replay "
+            f"launched {step_launches} {names}")
 
     chains = {}
     for entry, fn in (("step", step), ("timed", build), ("run", run)):
@@ -2209,9 +2252,8 @@ def rank_graph_rank(comm, payload: dict) -> None:
     from tpusph_torch.core.init import init_state
     from tpusph_torch.dist import mesh3d, sharded
     from tpusph_torch.dist.simulator import DistSimulator
-    from tpusph_torch.kernels import fused, qrank
 
-    kernels = (qrank.rank_queries, fused.density, fused.force)
+    kernels = main_kernels()
     cfg = tuned_config(payload["n"])
     whole = init_state(cfg, device="cpu")
     dcfg = sharded.DistConfig(**payload["dcfg"])
@@ -2240,7 +2282,7 @@ def multirank_phase(card: str, dev) -> dict:
     from tpusph_torch.core.config import tuned_config
     from tpusph_torch.dist.comm import spawn_ranks
 
-    names = ("rank", "density", "force")
+    names = KERNEL_NAMES
     cfg = tuned_config(N_MAIN)
     planes, occupancy, caps = four_slab_caps(cfg)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # one host, no network
@@ -2372,7 +2414,7 @@ def branch_phase(card: str, kernels, dev) -> dict:
     from tpusph_torch.scripts import graph_ms
     from tpusph_torch.utils import cuda_build
 
-    names = ("rank", "density", "force", "set_if")
+    names = (*KERNEL_NAMES, "set_if")
     counted = (*kernels, graph_cond.set_if)
 
     # a. set_if and its if node against the plain version, and its time
@@ -2554,7 +2596,7 @@ def main() -> int:
     from tpusph_torch.core.io import load_state
     from tpusph_torch.engine.simulator import Simulator
     from tpusph_torch.engine.step import make_step
-    from tpusph_torch.kernels import fused, probes, qrank
+    from tpusph_torch.kernels import probes
     from tpusph_torch.scripts import loop_probe as loop_script
     from tpusph_torch.scripts import (card_line, graph_ms, sass_loops, slope, timed,
                                       vpu_microbench)
@@ -2617,7 +2659,7 @@ def main() -> int:
     print(f"parity N={N_PARITY}: 10 kernel steps match 10 plain steps on the CPU")
 
     # ----------------------------------------------------- 5. timed path
-    kernels = [qrank.rank_queries, fused.density, fused.force]
+    kernels = main_kernels()
     for fn in kernels:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2632,7 +2674,7 @@ def main() -> int:
         sim.simulate_and_time(times)
         worst_oob = max(worst_oob, int(sim.last_aux.oob_count))
         worst_ovf = max(worst_ovf, sim.last_aux.window_overflow)
-    launches = {name: fn.launches for name, fn in zip(results, kernels)}
+    launches = {name: fn.launches for name, fn in zip(KERNEL_NAMES, kernels)}
     print(format_times(times))
     phase_s = times.build_grid + times.sph_update + times.memcpy
     timed_rate = times.iters / phase_s
@@ -2642,6 +2684,7 @@ def main() -> int:
     print(f"launches in the main path: {launches}")
     for name, n in launches.items():
         require(n > 0, f"{name} kernel was not launched by the main path")
+    hold_packed(launches, "the main path")
     require(worst_oob == 0, f"{worst_oob} particles left the grid")
     require(worst_ovf == 0, f"window overflow {worst_ovf}")
     for f in ("position", "velocity", "force", "density", "pressure"):
@@ -3005,8 +3048,7 @@ def main() -> int:
         rc = cli.main(argv)
         torch.cuda.synchronize()
         free_s = time.perf_counter() - t0
-        free_launches = {name: fn.launches
-                         for name, fn in zip(("rank", "density", "force"), kernels)}
+        free_launches = {name: fn.launches for name, fn in zip(KERNEL_NAMES, kernels)}
         require(rc == 0, f"the free-mode command line exited {rc}")
         pngs = sorted(f for f in os.listdir(frames_dir) if f.endswith(".png"))
         require(len(pngs) == FREE_FRAMES, f"free mode wrote {len(pngs)} frames")
@@ -3029,6 +3071,7 @@ def main() -> int:
     print(f"launches in free mode: {free_launches}")
     for name, n in free_launches.items():
         require(n > 0, f"{name} kernel was not launched by free mode")
+    hold_packed(free_launches, "free mode")
     v = state.valid.numpy()
     require(v.sum() == N_MAIN, "the saved state lost particles")
     for f in ("position", "velocity", "density"):
@@ -3055,6 +3098,13 @@ def main() -> int:
         graph_launches[name].update(counts)
     results["set_if"], branch_launches = branch_phase(card, kernels, dev)
     launches["set_if"] = branch_launches["set_if"]
+    # the packing pass's launches, in the force's row (each path's checks
+    # above hold them to one a force launch)
+    results["force"]["pack_launches"] = {
+        "main": launches["pack"], "per_replay": replay_launches.get("pack", 0),
+        **{what: counts["pack"] for what, counts in (
+            ("bench", bench_launches), ("dist", dist_launches), ("graph", graph_launches),
+            ("branch", branch_launches)) if "pack" in counts}}
 
     for name, r in results.items():
         r["launches_per_replay"] = replay_launches.get(name, 0)
@@ -3078,7 +3128,8 @@ def main() -> int:
                               "sass_instructions_per_round", "sass_loads_per_round",
                               "best_load_bytes_per_clock_per_sm", "rates", "turns",
                               "device_ms", "baseline_device_ms", "dist_launches",
-                              "bench_launches", "graph_launches", "branch_launches", "body_ms")
+                              "bench_launches", "graph_launches", "branch_launches", "body_ms",
+                              "pack_max_abs_err", "pack_launches")
             if k in r}}
         for name, r in results.items()
     ]

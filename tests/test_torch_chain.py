@@ -163,9 +163,9 @@ def test_graph_replays_count_launches():
     assert after[fused.density] - before[fused.density] == 15
     assert after[fused.force] == before[fused.force]
     assert after[graph_cond.set_if] == before[graph_cond.set_if]
-    # the step kernels and the device branch's set_if
-    assert set(graphs.COUNTED) == {qrank.rank_queries, fused.density, fused.force,
-                                   graph_cond.set_if}
+    # the step kernels, the force's packing and the device branch's set_if
+    assert set(graphs.COUNTED) == {qrank.rank_queries, fused.density, fused.force_pack,
+                                   fused.force, graph_cond.set_if}
 
 
 # ----------------------------------------------------------- fields path

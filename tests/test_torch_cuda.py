@@ -9,8 +9,11 @@ not need.) Bars: ranks exact; density rtol 1e-5; force rtol 1e-4 with
 atol 1e-4, and on the dense blob an atol at the float32 floor of its sums
 (see the test). The kernels sum in another order than the plain versions,
 and nvcc contracts a*b+c into FMA. The tiled density kernel equals the
-baseline kernel (the first design) bit for bit; the tiled force (one
-1/(2ρ) a pair, rsqrt) is held at the force bar. The block-narrowed rank
+baseline kernel (the first design) bit for bit; the tiled force (packed
+rows, 1/(2ρ) once a particle, rsqrt) is held at the force bar. Its packed
+rows equal the fields stacked with 1/(2ρ) bit for bit (one row, 129 rows
+and one rank's rows with halo), and every force launch of a timed step, a
+chain step and a chunk packs once. The block-narrowed rank
 kernel (csrc/qrank.cu) is exact on every path: spans staged in shared
 memory by 16-byte and by 4-byte copies, wide spans searched in device
 memory, scalar loads for ragged tails and pointers off 16 bytes; it equals
@@ -371,8 +374,8 @@ def test_kernels_equal_plain_under_pressure(dev, steps):
 @pytest.mark.parametrize("kind", ["grid", "random", "blob", "ragged", "pressured"])
 def test_force_walk_counter_equals_the_plain_count(dev, kind):
     """The kernel's walk counter equals `force_walk` exactly (candidates,
-    pressured targets, the heaviest block), and the forces with the counter
-    equal those without it bit for bit."""
+    pressured targets, the heaviest block), the forces with the counter
+    equal those without it bit for bit, and each force packs its rows once."""
     if kind == "pressured":
         cfg, cl, xyz, vxyz = _pressured_inputs(dev, 0)
     else:
@@ -381,10 +384,12 @@ def test_force_walk_counter_equals_the_plain_count(dev, kind):
     rho, p = _pressure(fused.density(*xyz, key, starts, cfg), cl, cfg)
     args = (*xyz, *vxyz, rho, p, key, starts, cfg)
     walk = torch.zeros(len(fused.WALK), dtype=torch.int64, device=dev)
+    before = fused.force_pack.launches
     f = fused.force(*args, walk=walk)
     want = fused.force_walk(key, starts, p, cfg)
     assert torch.equal(walk, want), (walk.tolist(), want.tolist())
     assert torch.equal(f, fused.force(*args))
+    assert fused.force_pack.launches == before + 2
     if kind in ("blob", "pressured"):
         assert int(want[1]) > 0
 
@@ -420,6 +425,99 @@ def test_timed_steps_count_the_walk_on_the_card(dev):
     assert [counts[f"force.{k}"] for k in fused.WALK] == want.tolist()
     assert counts["force.blocks"] == 6 * fused.force_blocks(8192)
     assert counts["force.pressured"] > 0
+
+
+@pytest.mark.parametrize("n", [1, 129])
+def test_force_pack_rows_equal_the_stacked_fields(dev, n):
+    """`force_pack` on the card: r0 = (x, y, z, 1/(2ρ)) and r1 = (vx, vy,
+    vz, p) equal torch's stack bit for bit, on 16-byte boundaries, one
+    launch; at 1 row (one partial block) and 129 (a block and one row)."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    fields = [torch.rand(n, generator=g, device=dev) * 10 for _ in range(6)]
+    rho = 900.0 + 200.0 * torch.rand(n, generator=g, device=dev)
+    p = torch.randn(n, generator=g, device=dev)
+    fields += [rho, p]
+    before = fused.force_pack.launches
+    got = fused.force_pack(*fields)
+    assert fused.force_pack.launches == before + 1
+    for r, want in zip(got, fused.force_pack_plain(*fields)):
+        assert r.shape == (n, 4) and r.data_ptr() % 16 == 0
+        assert torch.equal(r, want)
+
+
+def test_force_pack_entry_refuses_rows_off_16_bytes(dev):
+    """`tpusph_force_pack` returns cudaErrorMisalignedAddress, and writes
+    nothing, for an r0 or r1 4 bytes past a 16-byte boundary."""
+    from tpusph_torch.kernels.launch import stream_of
+    from tpusph_torch.utils import cuda_build
+
+    n = 64
+    fields = [torch.ones(n, device=dev) for _ in range(8)]
+    rows = torch.zeros((2, n + 1, 4), device=dev)
+    lib = cuda_build.library()
+    for off in ((4, 0), (0, 4)):
+        r0, r1 = (rows[k].data_ptr() + b for k, b in enumerate(off))
+        err = lib.tpusph_force_pack(*(t.data_ptr() for t in fields), n, r0, r1, stream_of(dev))
+        assert err and "misaligned" in lib.tpusph_error_string(err).decode(), err
+    torch.cuda.synchronize()
+    assert not rows.any()
+
+
+def test_force_pack_rows_of_a_rank_with_halo(dev, monkeypatch):
+    """One rank of the sharded engine with the whole machinery on the card:
+    the rows its force packs from its fields (the slab's rows, dead halo
+    rows and padding included) equal torch's stack of them bit for bit."""
+    from tpusph_torch.dist import sharded
+    from tpusph_torch.dist.comm import SlabComm
+
+    monkeypatch.setenv("TPUSPH_DIST_FULL_MACHINERY", "1")
+    n = 4096
+    cfg = default_config(n, chunk_size=1024)
+    dcfg = sharded.DistConfig(1, n, 1000 // 8 * 8, 256)
+    comm = SlabComm(dev)
+    state = sharded.distribute_state(init_state(cfg, device="cpu"), cfg, dcfg, comm)
+    seen = []
+    force = sharded.force
+
+    def recording(*args, **kw):
+        seen.append([a.clone() for a in args[:8]])
+        return force(*args, **kw)
+
+    monkeypatch.setattr(sharded, "force", recording)
+    sharded.make_sharded_step(cfg, dcfg, comm).eager(state)
+    assert len(seen) == 1
+    fields = seen[0]
+    assert fields[0].shape[0] > n  # the rank's rows hold halo and padding rows
+    before = fused.force_pack.launches
+    rows = fused.force_pack(*fields)
+    assert fused.force_pack.launches == before + 1
+    for r, want in zip(rows, fused.force_pack_plain(*fields)):
+        assert torch.equal(r, want)
+
+
+def test_timed_and_chain_steps_pack_once_a_force_launch(dev):
+    """Replayed timed steps (the counting force) and a replayed fields
+    chain (the force without the counter) launch the packing kernel once a
+    force launch, read from the launch counts."""
+    from tpusph_torch.engine.step import fields_from_state, make_fields_chain
+
+    n = 4096
+    cfg = default_config(n, chunk_size=1024)
+    sim = Simulator(cfg, device=dev)
+    sim.setup()
+    for _ in range(3):  # the captures of both carried pairs
+        sim.simulate_and_time(Times())
+    before = (fused.force_pack.launches, fused.force.launches)
+    for _ in range(4):
+        sim.simulate_and_time(Times())
+    sim.get_position()
+    assert (fused.force_pack.launches - before[0], fused.force.launches - before[1]) == (4, 4)
+    chain = make_fields_chain(cfg, 7, dev)
+    fs0 = fields_from_state(init_state(cfg, device=dev))
+    chain(fs0)  # the capture
+    before = (fused.force_pack.launches, fused.force.launches)
+    chain(fs0)
+    assert (fused.force_pack.launches - before[0], fused.force.launches - before[1]) == (7, 7)
 
 
 def test_kernels_repeat_bit_for_bit(dev):
@@ -815,7 +913,8 @@ def test_static_trip_refuses_other_round_counts(dev):
 
 
 def _counts():
-    return {fn: fn.launches for fn in (qrank.rank_queries, fused.density, fused.force)}
+    return {fn: fn.launches
+            for fn in (qrank.rank_queries, fused.density, fused.force_pack, fused.force)}
 
 
 @pytest.mark.parametrize("random_init", [False, True], ids=["grid", "random"])

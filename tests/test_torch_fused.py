@@ -128,3 +128,25 @@ def test_wrappers_reject_bad_inputs(case):
         fused.density(x, y, z, key, starts[:-1], cfg)
     with pytest.raises(TypeError):
         fused.density(x.double(), y, z, key, starts, cfg)
+
+
+@pytest.mark.parametrize("n", [1, 5, 129])
+def test_force_pack_rows_are_the_fields_and_half_inverse_density(n):
+    """The force's packed rows on the CPU (`force_pack`, its plain
+    version): r0 = (x, y, z, 1/(2ρ)) and r1 = (vx, vy, vz, p), row for row,
+    1/(2ρ) the float32 quotient NumPy takes; no kernel launch is counted,
+    and fields of another length are refused."""
+    rng = np.random.default_rng(n)
+    cols = [rng.uniform(0.0, 10.0, n).astype(np.float32) for _ in range(6)]
+    rho = rng.uniform(900.0, 1100.0, n).astype(np.float32)
+    p = rng.normal(0.0, 50.0, n).astype(np.float32)
+    fields = [torch.from_numpy(a) for a in (*cols, rho, p)]
+    before = fused.force_pack.launches
+    r0, r1 = fused.force_pack(*fields)
+    assert fused.force_pack.launches == before
+    assert r0.shape == r1.shape == (n, 4) and r0.dtype == r1.dtype == torch.float32
+    half_inv = np.float32(1.0) / (np.float32(2.0) * rho)
+    np.testing.assert_array_equal(r0.numpy(), np.stack([*cols[:3], half_inv], axis=1))
+    np.testing.assert_array_equal(r1.numpy(), np.stack([*cols[3:], p], axis=1))
+    with pytest.raises(ValueError):
+        fused.force_pack(*fields[:7], fields[7][:-1])

@@ -2,11 +2,12 @@
 // tile kernels: a block owns a tile of consecutive sorted targets; the
 // density stages the stencil windows in shared memory where they are
 // dense and reads device memory where they are sparse; the force reads
-// device memory.
+// packed 16-byte rows from device memory.
 //
 // Replaces tpusph/pallas/fused.py:
 //   density_pallas / _density_kernel -> tpusph_density (density_tile_kernel)
-//   force_pallas   / _force_kernel   -> tpusph_force   (force_tile_kernel)
+//   force_pallas   / _force_kernel   -> tpusph_force_pack (force_tile_kernel_pack),
+//                                        then tpusph_force (force_tile_kernel)
 // The first design, one thread per target gathering straight from device
 // memory, is kept in sph_baseline.cu to be timed against this one.
 //
@@ -42,6 +43,21 @@
 // density with the baseline's per-pair expressions, so the density equals
 // the baseline's bit for bit. kernels/fused.py::chunk_walk is the staged
 // walk in plain PyTorch.
+//
+// The force's rows. A pass of force_tile_kernel_pack, one thread a row,
+// first packs the eight fields into two float4 rows, r0 = (x, y, z,
+// 1/(2 rho)) and r1 = (vx, vy, vz, p). The force's walk is bound by its
+// load instructions and their L1 wavefronts, not by bytes (the lanes of a
+// warp sit in 2-3 cells, so each load of a candidate's field costs up to
+// 2-3 wavefronts): reading packed rows, a candidate is one 16-byte load
+// where it was three 4-byte ones, and a pair within h one more where it was
+// five, and the pair takes 1/(2 rho_j) from its row, computed once a
+// particle, where it took an IEEE divide once a pair. The packing is a
+// fixed pass over n rows (32 bytes in and out a row); the saving grows
+// with the candidates walked, so every state takes it. The density keeps
+// its three field arrays: it reads only x, y, z, its dense blocks copy
+// them into shared memory a field at a time (4 rows in 16 bytes), and a
+// fourth lane would add a quarter to every copy and every staged slot.
 //
 // The shapes (kTile, kChunk, kStageMin) are the fastest mean over steps 0,
 // 20, 50 and 100 of 262,144 grid init in a sweep of T 64-256, S 32-1024
@@ -81,7 +97,9 @@
 // bytes a particle (12.6 MB) plus the starts, ~4 us, and does 9 flops a
 // candidate and 32 a pair within h; operations bind it by step 100 (6e7
 // candidates). Both run at a few percent of these bounds: they are bound
-// by issue (loop and window bookkeeping, divergence) and load latency.
+// by instruction throughput (loop and window bookkeeping, divergence)
+// and by their load instructions' latency and L1 wavefronts, which the
+// force's packed rows cut to one 16-byte load a candidate and one a pair.
 // What the design does about the baseline's three costs:
 //   - load latency: all starts entries are loaded up front, and dense
 //     density blocks read their candidates from shared memory, staged a
@@ -89,10 +107,13 @@
 //   - per-window overhead and divergence: in a dense block a warp's lanes
 //     read the same staged rows, and one barrier serves the chunks of
 //     several columns;
-//   - divides: the force takes 1/(2 rho_j) and p_j/(2 rho_j) once per pair
-//     within h (one divide where the baseline has three; the TPU kernel
-//     takes them per particle, fused.py:34-35) and r from rsqrt, a few ulps
-//     from the baseline's sums.
+//   - divides: the force takes 1/(2 rho_j) once a particle, in the
+//     packing pass, as the TPU kernel does (fused.py:34-35), and no divide
+//     a pair (the baseline has three); r comes from rsqrt, a few ulps from
+//     the baseline's sums;
+//   - loads: the force reads a candidate as one 16-byte row and a pair as
+//     one more (the baseline, three 4-byte loads a candidate and five
+//     more a pair).
 
 #include <climits>
 #include <cstdint>
@@ -437,14 +458,29 @@ __device__ __forceinline__ void count_walk(unsigned rows, bool pressured,
   }
 }
 
+// The force's packed rows, one thread a row over the n sorted rows:
+//   r0[j] = (x_j, y_j, z_j, 1/(2 rho_j)),  r1[j] = (vx_j, vy_j, vz_j, p_j).
+// 1/(2 rho_j) is the expression a pair took before the rows were packed, so
+// it is the same float. Every row is written, padding rows included (their
+// 1/(2 rho) may be anything: no window holds them).
+__global__ void __launch_bounds__(kBlock)
+    force_tile_kernel_pack(Fields<8> fs, int n, float4* __restrict__ r0,
+                           float4* __restrict__ r1) {
+  const int j = blockIdx.x * kBlock + threadIdx.x;
+  if (j >= n) return;
+  r0[j] = make_float4(fs.p[0][j], fs.p[1][j], fs.p[2][j], 1.0f / (2.0f * fs.p[6][j]));
+  r1[j] = make_float4(fs.p[3][j], fs.p[4][j], fs.p[5][j], fs.p[7][j]);
+}
+
 // Pressure plus viscosity force on each sorted target, the per-pair
 // arithmetic of physics/kernels.py pair_force with both of its guards:
 //   pressure  (r^2 <= h^2, r >= eps): -m (p_i + p_j) / (2 rho_j) * grad,
 //             grad = disp * (-vk (h - r)^2 / r)
 //   viscosity (r <= h,     r >= eps): mu m vk (h - r) / rho_j * (v_j - v_i)
-// r >= eps drops the self pair. Fields: x y z vx vy vz rho p, read from
-// device memory. Output is field-major f[3][n]; sentinel rows write 0.
-// A pair within h takes a = 1/(2 rho_j) (one divide) and p_j a, and
+// r >= eps drops the self pair. Reads the packed rows of
+// force_tile_kernel_pack: a candidate is one 16-byte load of r0[j], a pair
+// within h one more of r1[j], and a = 1/(2 rho_j) comes with the position.
+// Output is field-major f[3][n]; sentinel rows write 0. A pair takes
 // r = r^2 * rsqrt(r^2), a few ulps from the exact form. r^2 = 0 gives
 // r = NaN, which fails r >= eps as the self pair must.
 //
@@ -457,22 +493,25 @@ __device__ __forceinline__ void count_walk(unsigned rows, bool pressured,
 // the kernel without Count, bit for bit.
 template <bool Count>
 __global__ void __launch_bounds__(kTile, kBlocksPerSm)
-    force_tile_kernel(Fields<8> fs, const int* __restrict__ key,
-                      const int* __restrict__ starts, int n, int C, int nc,
-                      float h, float h2, float eps, float m, float vk, float mu,
-                      float* __restrict__ f, unsigned long long* __restrict__ walk) {
+    force_tile_kernel(const float4* __restrict__ r0, const float4* __restrict__ r1,
+                      const int* __restrict__ key, const int* __restrict__ starts, int n,
+                      int C, int nc, float h, float h2, float eps, float m, float vk,
+                      float mu, float* __restrict__ f, unsigned long long* __restrict__ walk) {
   __shared__ Windows w;
   const int t = threadIdx.x;
   const int i = blockIdx.x * kTile + t;
   const int k = i < n ? key[i] : nc;
   const bool live = k < nc;
-  const float xi = live ? fs.p[0][i] : 0.0f;
-  const float yi = live ? fs.p[1][i] : 0.0f;
-  const float zi = live ? fs.p[2][i] : 0.0f;
-  const float vxi = live ? fs.p[3][i] : 0.0f;
-  const float vyi = live ? fs.p[4][i] : 0.0f;
-  const float vzi = live ? fs.p[5][i] : 0.0f;
-  const float pi = live ? fs.p[7][i] : 0.0f;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 own = live ? r0[i] : zero;
+  const float4 vown = live ? r1[i] : zero;
+  const float xi = own.x;
+  const float yi = own.y;
+  const float zi = own.z;
+  const float vxi = vown.x;
+  const float vyi = vown.y;
+  const float vzi = vown.z;
+  const float pi = vown.w;
   const float visc_c = 2.0f * ((mu * m) * vk);
   const unsigned rows = load_windows(w, starts, k, live, C, nc);
   if constexpr (Count) count_walk(rows, live && pi > 0.0f, walk);
@@ -482,9 +521,10 @@ __global__ void __launch_bounds__(kTile, kBlocksPerSm)
   for (int c = 0; c < kColumns; ++c) {
     const int end = w.end[c][t];
     for (int j = w.begin[c][t]; j < end; ++j) {
-      const float ddx = xi - __ldg(fs.p[0] + j);
-      const float ddy = yi - __ldg(fs.p[1] + j);
-      const float ddz = zi - __ldg(fs.p[2] + j);
+      const float4 cj = __ldg(r0 + j);
+      const float ddx = xi - cj.x;
+      const float ddy = yi - cj.y;
+      const float ddz = zi - cj.z;
       const float r2 = ddx * ddx + ddy * ddy + ddz * ddz;
       // Past r^2 <= h^2 the pressure term is off, and the viscosity term
       // is off too or, at sqrt rounding to r == h, exactly 0.
@@ -492,18 +532,19 @@ __global__ void __launch_bounds__(kTile, kBlocksPerSm)
       const float rinv = rsqrtf(r2);
       const float r = r2 * rinv;
       if (!(r >= eps)) continue;  // self pair (r^2 = 0 gives NaN)
-      const float a = 1.0f / (2.0f * __ldg(fs.p[6] + j));  // 1/(2 rho_j)
+      const float a = cj.w;  // 1/(2 rho_j)
+      const float4 vj = __ldg(r1 + j);
       const float hr = h - r;
       const float grad = (-vk) * (hr * hr) * rinv;
-      const float coef = (-m) * (pi * a + __ldg(fs.p[7] + j) * a);
+      const float coef = (-m) * (pi * a + vj.w * a);
       float fx = coef * (ddx * grad);
       float fy = coef * (ddy * grad);
       float fz = coef * (ddz * grad);
       if (r <= h) {
         const float visc = visc_c * hr * a;
-        fx += visc * (__ldg(fs.p[3] + j) - vxi);
-        fy += visc * (__ldg(fs.p[4] + j) - vyi);
-        fz += visc * (__ldg(fs.p[5] + j) - vzi);
+        fx += visc * (vj.x - vxi);
+        fy += visc * (vj.y - vyi);
+        fz += visc * (vj.z - vzi);
       }
       ax += fx;
       ay += fy;
@@ -536,23 +577,39 @@ extern "C" int tpusph_density(const float* x, const float* y, const float* z,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `walk`: the walk counter (int64[3], zeroed by the caller), or null to
-// count nothing.
-extern "C" int tpusph_force(const float* x, const float* y, const float* z,
-                            const float* vx, const float* vy, const float* vz,
-                            const float* rho, const float* p, const int* key,
-                            const int* starts, int n, int C, int nc, float h,
-                            float h2, float eps, float m, float vk, float mu,
-                            float* f, unsigned long long* walk, cudaStream_t stream) {
+// The force's packed rows r0, r1 (float4[n] each) from the eight fields;
+// cudaErrorMisalignedAddress, and nothing launched, where r0 or r1 is off
+// a 16-byte boundary.
+extern "C" int tpusph_force_pack(const float* x, const float* y, const float* z,
+                                 const float* vx, const float* vy, const float* vz,
+                                 const float* rho, const float* p, int n, float* r0,
+                                 float* r1, cudaStream_t stream) {
   using namespace tpusph;
+  if ((reinterpret_cast<std::uintptr_t>(r0) | reinterpret_cast<std::uintptr_t>(r1)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const Fields<8> fs{{x, y, z, vx, vy, vz, rho, p}};
+  force_tile_kernel_pack<<<num_blocks(n), kBlock, 0, stream>>>(
+      fs, n, reinterpret_cast<float4*>(r0), reinterpret_cast<float4*>(r1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// r0, r1: the packed rows of tpusph_force_pack. `walk`: the walk counter
+// (int64[3], zeroed by the caller), or null to count nothing.
+extern "C" int tpusph_force(const float* r0, const float* r1, const int* key,
+                            const int* starts, int n, int C, int nc, float h, float h2,
+                            float eps, float m, float vk, float mu, float* f,
+                            unsigned long long* walk, cudaStream_t stream) {
+  using namespace tpusph;
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const float4* rows = reinterpret_cast<const float4*>(r0);
+  const float4* vels = reinterpret_cast<const float4*>(r1);
   if (walk == nullptr) {
-    force_tile_kernel<false><<<tiles(n), kTile, 0, stream>>>(fs, key, starts, n, C, nc, h, h2,
-                                                             eps, m, vk, mu, f, walk);
+    force_tile_kernel<false><<<tiles(n), kTile, 0, stream>>>(rows, vels, key, starts, n, C, nc,
+                                                             h, h2, eps, m, vk, mu, f, walk);
   } else {
-    force_tile_kernel<true><<<tiles(n), kTile, 0, stream>>>(fs, key, starts, n, C, nc, h, h2,
-                                                            eps, m, vk, mu, f, walk);
+    force_tile_kernel<true><<<tiles(n), kTile, 0, stream>>>(rows, vels, key, starts, n, C, nc,
+                                                            h, h2, eps, m, vk, mu, f, walk);
   }
   return static_cast<int>(cudaGetLastError());
 }

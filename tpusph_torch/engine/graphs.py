@@ -91,12 +91,12 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from tpusph_torch.bench.spans import count, span
-from tpusph_torch.kernels.fused import density, force
+from tpusph_torch.kernels.fused import density, force, force_pack
 from tpusph_torch.kernels.graph_cond import node_total, set_if
 from tpusph_torch.kernels.launch import in_plain_version, on_cpu
 from tpusph_torch.kernels.qrank import rank_queries
 
-COUNTED = (rank_queries, density, force, set_if)
+COUNTED = (rank_queries, density, force_pack, force, set_if)
 
 captures = 0  # graphs made in this process (on the CPU: first guarded calls)
 

@@ -4,7 +4,10 @@ Counterpart of the two kernels of `tpusph/pallas/fused.py`:
 `density_pallas` and `force_pallas`. The CUDA kernels are in
 `tpusph_torch/csrc/sph.cu`; `density_plain` and `force_plain` are the same
 functions in plain PyTorch. `density` and `force` take the plain version
-for CPU tensors and launch the kernel for CUDA tensors.
+for CPU tensors and launch the kernels for CUDA tensors: `force` first
+packs its eight fields into two float4 rows a particle (`force_pack`,
+`force_pack_plain`), which the force kernel reads a candidate and a pair
+at a time.
 
 Both walk, for each sorted target with key k, its 9 stencil windows of
 the sorted order: for column (dy, dz), off = dy·C + dz·C², the candidates
@@ -42,8 +45,8 @@ from tpusph_torch.kernels.launch import check_tensor, on_cpu, plain_version, str
 # candidates, else it reads device memory, whose loads hit L1 (neighbouring
 # targets share most of their windows). The fastest mean over steps 0, 20,
 # 50 and 100 of 262,144 grid init on an H100 (PERF.md). The force
-# kernel takes blocks of FORCE_TILE = 128 targets (the same kTile) and never
-# stages.
+# kernel takes blocks of FORCE_TILE = 128 targets (the same kTile), never
+# stages, and reads `force_pack`'s rows.
 DENSITY_TILE, DENSITY_CHUNK, DENSITY_STAGE_MIN = 128, 1024, 96
 PIECES = 16
 FORCE_TILE = 128
@@ -301,19 +304,57 @@ def force_walk(key_sorted, starts, p, cfg: SimConfig) -> torch.Tensor:
     return torch.stack([per_target.sum(), pressured, block_max])
 
 
-def _launch_force(entry, fields, key_sorted, starts, cfg: SimConfig, *extra):
-    """`entry` on the fields; `extra`: its arguments between f and the
-    stream (`tpusph_force`'s walk counter)."""
-    dev, n = _check_sorted_inputs(fields, key_sorted, starts, cfg)
+def force_pack_plain(x, y, z, vx, vy, vz, rho, p) -> tuple[torch.Tensor, torch.Tensor]:
+    """The force kernel's packed rows in plain PyTorch, f32[n, 4] each:
+    r0 = (x, y, z, 1/(2ρ)) and r1 = (vx, vy, vz, p), ρ the clamped density."""
+    return (torch.stack([x, y, z, 1.0 / (2.0 * rho)], dim=1),
+            torch.stack([vx, vy, vz, p], dim=1))
+
+
+def force_pack(x, y, z, vx, vy, vz, rho, p) -> tuple[torch.Tensor, torch.Tensor]:
+    """(r0, r1), the rows the force kernel reads (see `force_pack_plain`).
+    Launches `tpusph_force_pack` for CUDA tensors, one thread a row, into two
+    fresh (n, 4) arrays: the kernel reads a row as one float4. 1/(2ρ) is the
+    correctly rounded quotient, as `force_pack_plain`'s."""
+    fields = dict(x=x, y=y, z=z, vx=vx, vy=vy, vz=vz, rho=rho, p=p)
+    dev, n = x.device, x.shape[0]
+    for name, t in fields.items():
+        check_tensor(name, t, torch.float32, dev, (n,))
     if on_cpu(dev):
         with plain_version():
-            return force_plain(*fields.values(), key_sorted, starts, cfg)
+            return force_pack_plain(*fields.values())
+    return _launch_pack(fields, n, dev)
+
+
+def _launch_pack(fields: dict, n: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """`tpusph_force_pack` on the checked CUDA fields. The caching allocator
+    starts every block on a 16-byte boundary; the entry point refuses rows
+    off one."""
     from tpusph_torch.utils import cuda_build
 
-    f = fields["x"].new_empty((3, n))
+    r0, r1 = fields["x"].new_empty((n, 4)), fields["x"].new_empty((n, 4))
+    with torch.cuda.device(dev):
+        err = cuda_build.library().tpusph_force_pack(
+            *(t.data_ptr() for t in fields.values()), n, r0.data_ptr(), r1.data_ptr(),
+            stream_of(dev))
+    cuda_build.check(err, "tpusph_force_pack")
+    force_pack.launches += 1
+    return r0, r1
+
+
+force_pack.launches = 0
+
+
+def _launch_force(entry, inputs, key_sorted, starts, cfg: SimConfig, *extra):
+    """`entry` on the CUDA tensors `inputs` (its leading pointers); `extra`:
+    its arguments between f and the stream (`tpusph_force`'s walk counter)."""
+    from tpusph_torch.utils import cuda_build
+
+    dev, n = key_sorted.device, key_sorted.shape[0]
+    f = inputs[0].new_empty((3, n))
     with torch.cuda.device(dev):
         err = getattr(cuda_build.library(), entry)(
-            *(t.data_ptr() for t in fields.values()),
+            *(t.data_ptr() for t in inputs),
             key_sorted.data_ptr(), starts.data_ptr(), n, cfg.num_cells_per_dim,
             cfg.num_cells, f32(cfg.h), f32(cfg.h2), f32(cfg.eps), f32(cfg.mass),
             f32(cfg.v_kernel_coeff), f32(cfg.viscosity), f.data_ptr(), *extra, stream_of(dev),
@@ -324,28 +365,34 @@ def _launch_force(entry, fields, key_sorted, starts, cfg: SimConfig, *extra):
 
 def force(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig,
           walk: torch.Tensor | None = None) -> torch.Tensor:
-    """Force on each sorted target, f32[3, n] (see `force_plain`). Launches
-    `tpusph_force` for CUDA tensors: blocks of 128 targets reading device
-    memory; a pair within h takes 1/(2ρ_j) once (one divide where
-    `force_baseline` takes three) and r from rsqrt, within a few ulps of
-    the baseline's sums.
+    """Force on each sorted target, f32[3, n] (see `force_plain`). For CUDA
+    tensors, packs the rows (`force_pack`) and launches `tpusph_force` on
+    them, both on the current stream: blocks of 128 targets reading device
+    memory, a candidate as one 16-byte row (x, y, z, 1/(2ρ)) and a pair
+    within h as one more (vx, vy, vz, p), so 1/(2ρ_j) is taken once a
+    particle where `force_baseline` takes three divides a pair; r from
+    rsqrt, within a few ulps of the baseline's sums.
 
     `walk`: an int64[3] counter on the rows' device, zeroed by the caller,
     to which the pass adds its walk (WALK, `force_walk`): on a card the
     kernel's blocks count it beside their sums, on the CPU `force_walk`
     computes it. None counts nothing, and the forces are the same bits."""
     fields = dict(x=x, y=y, z=z, vx=vx, vy=vy, vz=vz, rho=rho, p=p)
+    dev, n = _check_sorted_inputs(fields, key_sorted, starts, cfg)
     if walk is not None:
-        check_tensor("walk", walk, torch.int64, key_sorted.device, (len(WALK),))
-    f = _launch_force("tpusph_force", fields, key_sorted, starts, cfg,
-                      None if walk is None else walk.data_ptr())
-    if f.is_cuda:
-        force.launches += 1
-    elif walk is not None:
+        check_tensor("walk", walk, torch.int64, dev, (len(WALK),))
+    if on_cpu(dev):
         with plain_version():
-            got = force_walk(key_sorted, starts, p, cfg)
-            walk[:2] += got[:2]
-            walk[2:] = torch.maximum(walk[2:], got[2:])
+            f = force_plain(*fields.values(), key_sorted, starts, cfg)
+            if walk is not None:
+                got = force_walk(key_sorted, starts, p, cfg)
+                walk[:2] += got[:2]
+                walk[2:] = torch.maximum(walk[2:], got[2:])
+        return f
+    rows = _launch_pack(fields, n, dev)
+    f = _launch_force("tpusph_force", rows, key_sorted, starts, cfg,
+                      None if walk is None else walk.data_ptr())
+    force.launches += 1
     return f
 
 
@@ -353,11 +400,15 @@ force.launches = 0
 
 
 def force_baseline(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig):
-    """`force` on the first design's kernel, `tpusph_force_baseline`."""
+    """`force` on the first design's kernel, `tpusph_force_baseline`, which
+    reads the eight fields."""
     fields = dict(x=x, y=y, z=z, vx=vx, vy=vy, vz=vz, rho=rho, p=p)
-    f = _launch_force("tpusph_force_baseline", fields, key_sorted, starts, cfg)
-    if f.is_cuda:
-        force_baseline.launches += 1
+    dev, _ = _check_sorted_inputs(fields, key_sorted, starts, cfg)
+    if on_cpu(dev):
+        with plain_version():
+            return force_plain(*fields.values(), key_sorted, starts, cfg)
+    f = _launch_force("tpusph_force_baseline", list(fields.values()), key_sorted, starts, cfg)
+    force_baseline.launches += 1
     return f
 
 

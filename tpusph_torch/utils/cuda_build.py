@@ -41,10 +41,13 @@ SIGNATURES = {
     "tpusph_qrank": [P, I, P, I, I, P, P],
     # x, y, z, key, starts, n, C, num_cells, h2, scale, rho, stream
     "tpusph_density": [P, P, P, P, P, I, I, I, F, F, P, P],
-    # x, y, z, vx, vy, vz, rho, p, key, starts, n, C, num_cells, h, h2, eps,
-    # mass, vk, mu, f (3·n field-major), walk (int64[3] or null), stream
-    "tpusph_force": [P] * 10 + [I, I, I] + [F] * 6 + [P, P, P],
-    # the first design (sph_baseline.cu), as above without walk
+    # x, y, z, vx, vy, vz, rho, p, n, r0, r1 (float4[n] each), stream
+    "tpusph_force_pack": [P] * 8 + [I, P, P, P],
+    # r0, r1 (tpusph_force_pack's rows), key, starts, n, C, num_cells, h, h2,
+    # eps, mass, vk, mu, f (3·n field-major), walk (int64[3] or null), stream
+    "tpusph_force": [P] * 4 + [I, I, I] + [F] * 6 + [P, P, P],
+    # the first design (sph_baseline.cu): the density as above; the force
+    # x, y, z, vx, vy, vz, rho, p, key, starts, then as tpusph_force without walk
     "tpusph_density_baseline": [P, P, P, P, P, I, I, I, F, F, P, P],
     "tpusph_force_baseline": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
     "tpusph_qrank_baseline": [P, I, P, I, I, P, P],
