@@ -13,27 +13,24 @@ Phases, each of which raises on failure (exit code 1):
      100): ranks exact, on the step's queries (every cell in order) and
      also on 1,000,002 unsorted queries (a seeded permutation of the
      cells), on sorted queries with repeats and values above num_cells and
-     on a query tensor 4 bytes past a 16-byte boundary, the first rank
-     kernel (csrc/sph_baseline.cu) held the same way; the share of the rank
-     kernel's blocks that find an empty span, stage their span in shared
-     memory or search device memory (`qrank.block_spans`); the tiled
-     density (csrc/sph.cu) and the baseline
+     on a query tensor 4 bytes past a 16-byte boundary; the share of the
+     rank kernel's blocks that find an empty span, stage their span in
+     shared memory or search device memory (`qrank.block_spans`); the tiled
+     density (csrc/sph.cu) and its first design `density_baseline`
      (csrc/sph_baseline.cu) rtol 1e-5, force rtol 1e-4 atol 1e-4, and the
-     largest difference between tiled and baseline (0 when they agree bit
-     for bit). At each state: the times of baseline, new, new, baseline
-     in turns for rank, density and force (device time: 10 calls in one
-     CUDA graph, the median of 11 replays), the plain version's (CUDA
-     events around 10 eager calls), for rank also one `torch.searchsorted`
-     call's (library_ms) and, at step 20, the same turns on the unsorted
-     queries and the rank kernel alone on one block of queries for each
-     SM; each kernel's bound, the
+     tiled density bit for bit equal to `density_baseline` (the largest
+     difference printed, 0). At each state: the time of rank, density and
+     force, each alone (device time: 10 calls in one CUDA graph, the
+     median of 11 replays), the plain version's (CUDA events around 10
+     eager calls), for rank also one `torch.searchsorted` call's
+     (library_ms) and, at step 20, the rank kernel on the unsorted queries
+     and on one block of queries for each SM; each kernel's bound, the
      larger of its bytes (each input read once, each output written once;
      the starts entries it reads) at 3.35 TB/s and its fp32 operations at
      67 TFLOP/s (density 9 a candidate, 4 a pair within h and 1 a target;
      force 9 a candidate and 32 a pair within h and apart; rank 2 a
-     binary-search step); Gpair/s; the baseline's lane efficiency (window
-     rows / 32 x the sum over warps and columns of the warp's longest
-     window) and the tiled density's staging overhead (rows staged, from
+     binary-search step); Gpair/s; the tiled density's staging overhead
+     (rows staged, from
      `fused.chunk_walk`, / rows of the union of each staging block's
      windows; the tiled force stages nothing); the force's packing pass
      (`fused.force_pack`) equal to `fused.force_pack_plain` bit for bit at
@@ -55,28 +52,24 @@ Phases, each of which raises on failure (exit code 1):
      every dtype, stream count, pt and variant at 64 rounds (f32 FMA, f32
      density mix and loop probe rtol 1e-5; bf16 bit-equal), the density
      mix also at 67 rounds (no multiple of the rounds its loop takes at
-     once) and at 1, and in bf16 bit for bit against its first design; the
-     loop probe at 64, 67 and 1 rounds with its candidates staged in shared
-     memory and read from device memory, its first design
-     (csrc/sph_baseline.cu) at 64; the dynamic-trip variants also with
-     desc[rounds] != rounds; at the entry points' round counts the f32 FMA
-     bit-equal on tie-free inputs, and the loop probe and its first design
-     (every variant at R, V0 and V1 of the new one at 4R) within rounds·eps
-     and a mean difference under 1 % of one round's term, with the largest
-     difference between the two at R (0 when they agree bit for bit); then
+     once) and at 1; the loop probe at 64, 67 and 1 rounds with its
+     candidates staged in shared memory and read from device memory; the
+     dynamic-trip variants also with desc[rounds] != rounds; at the entry
+     points' round counts the f32 FMA bit-equal on tie-free inputs, and the
+     loop probe (every variant at R, V0 and V1 at 4R) within rounds·eps
+     and a mean difference under 1 % of one round's term; then
      the two probe entry points (`tpusph_torch.scripts.vpu_microbench` and
      `loop_probe`) at their own round counts, every rate finite and
      positive, and the share of the loop probe's calls that staged; the
-     density mix against its first design in turns at every
-     dtype and pt; its issue ceiling (the instructions of a round, counted from
+     density mix's issue ceiling (the instructions of a round, counted from
      the SASS of its loop, on every scheduler of the card at the SM clock
      `nvidia-smi` reports) and the four loads a round found inside that
      loop; the probe's best f32 rate as bytes its loads move a clock and
      SM; the density kernel's time at each state beside
      `mix_ceiling_ms`, its candidate pairs over the probe's best f32 rate;
-     the loop probe against its first design in turns (first, new, new,
-     first; ms a call by CUDA events and device ms of 10 calls in one CUDA
-     graph) for V0-V5 at pt 64 and V3 and V5 at pt 8 and 128; the issue
+     the loop probe alone (ms a call by CUDA events and device ms of 10
+     calls in one CUDA graph) for V0-V5 at pt 64 and V3 and V5 at pt 8
+     and 128; the issue
      ceilings of V0, V3 and V5 from the SASS of their staged main loops,
      each round's three candidate loads (LDS) inside them, and the share of
      each ceiling reached by the call, its device time and the slope; V3's
@@ -403,9 +396,9 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def window_stats(key, starts, cfg):
-    """(candidates, distinct starts entries a pass reads, the baseline's
-    lane efficiency, (rows the tiled density stages, rows of its staging
-    blocks' window unions, share of blocks that stage))."""
+    """(candidates, distinct starts entries a pass reads, (rows the tiled
+    density stages, rows of its staging blocks' window unions, share of
+    blocks that stage))."""
     from tpusph_torch.kernels import fused
 
     nc = cfg.num_cells
@@ -417,9 +410,6 @@ def window_stats(key, starts, cfg):
     entries = int(torch.unique(torch.cat([lo.flatten(), hi.flatten()])).numel())
     begin, count = fused.windows(key, starts, cfg)
     n = key.numel()
-    # baseline: a warp runs its longest lane's window in each column
-    warps = torch.nn.functional.pad(count, (0, 0, 0, -n % 32)).view(-1, 32, 9)
-    lane_eff = float(count.sum()) / (32 * float(warps.amax(dim=1).sum()))
     # tiled density: the rows staged against the rows of each (block,
     # column)'s union
     t = fused.DENSITY_TILE
@@ -434,7 +424,7 @@ def window_stats(key, starts, cfg):
     walk = fused.chunk_walk(key, starts, cfg, stage_min=fused.DENSITY_STAGE_MIN)
     staging = (int(fused.staged_slots(walk[:, 3], walk[:, 4]).sum()), needed,
                float(staged.float().mean()))
-    return int(count.sum()), entries, lane_eff, staging
+    return int(count.sum()), entries, staging
 
 
 def kernel_phase(card: str, dev) -> dict:
@@ -464,7 +454,7 @@ def kernel_phase(card: str, dev) -> dict:
                         max_abs_diff_baseline=0.0),
         "force": dict(route="cuda", source="tpusph_torch/csrc/sph.cu",
                       replaces="tpusph/pallas/fused.py:1540", max_abs_err=0.0,
-                      max_abs_diff_baseline=0.0, pack_max_abs_err=0.0),
+                      pack_max_abs_err=0.0),
     }
     for r in results.values():
         r["by_step"] = {}
@@ -486,10 +476,8 @@ def kernel_phase(card: str, dev) -> dict:
         shares = {}
         for qname, q in query_sets.items():
             rk, ovf = qrank.rank_queries(key, q, nc)
-            rb, _ = qrank.rank_queries_baseline(key, q, nc)
             rp = qrank.rank_queries_plain(key, q, nc)
             torch.testing.assert_close(rk, rp, rtol=0, atol=0)
-            torch.testing.assert_close(rb, rp, rtol=0, atol=0)
             require(ovf == 0, f"rank overflow {ovf}")
             results["rank"]["max_abs_err"] = max(results["rank"]["max_abs_err"],
                                                  float((rk - rp).abs().max()))
@@ -524,34 +512,35 @@ def kernel_phase(card: str, dev) -> dict:
             results["force"]["pack_max_abs_err"] = max(
                 results["force"]["pack_max_abs_err"], float((got - want).abs().max()))
         fk = fused.force(*xyz, *vxyz, rho, p, key, starts, cfg)
-        fb = fused.force_baseline(*xyz, *vxyz, rho, p, key, starts, cfg)
         fp = fused.force_plain(*xyz, *vxyz, rho, p, key, starts, cfg)
         torch.testing.assert_close(fk, fp, rtol=1e-4, atol=1e-4)
-        torch.testing.assert_close(fb, fp, rtol=1e-4, atol=1e-4)
-        diffs = {}
-        for name, got, base, plain in (("density", dk, db, dp), ("force", fk, fb, fp)):
+        for name, got, plain in (("density", dk, dp), ("force", fk, fp)):
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], float((got - plain).abs().max()))
-            diffs[name] = float((got - base).abs().max())
-            r["max_abs_diff_baseline"] = max(r["max_abs_diff_baseline"], diffs[name])
-            if diffs[name]:
-                worst = int((got - base).abs().flatten().argmax()) % n
-                print(f"step {label}: {name} differs from the baseline by up to "
-                      f"{diffs[name]:.3e} (row {worst}, key {int(key[worst])}; {card})")
-        cand, entries, lane_eff, staging = window_stats(key, starts, cfg)
+        # the tiled density against its first design, bit for bit: the
+        # reference of its staged and direct paths
+        diff = float((dk - db).abs().max())
+        results["density"]["max_abs_diff_baseline"] = max(
+            results["density"]["max_abs_diff_baseline"], diff)
+        if diff:
+            worst = int((dk - db).abs().argmax())
+            print(f"step {label}: the tiled density differs from density_baseline by up to "
+                  f"{diff:.3e} (row {worst}, key {int(key[worst])}; {card})")
+        require(diff == 0, f"step {label}: the tiled density differs from density_baseline")
+        cand, entries, staging = window_stats(key, starts, cfg)
         _, within, apart = fused.pair_counts(*xyz, key, starts, cfg)
         _, count = fused.windows(key, starts, cfg)
         print(f"step {label}: ranks equal (cells, unsorted, repeats and above num_cells, "
-              f"off 16 bytes; new and baseline); the force's packed rows equal their plain "
+              f"off 16 bytes); the force's packed rows equal their plain "
               f"version bit for bit; density max|err| "
               f"{float((dk - dp).abs().max()):.3e} (max rho {float(dk.max()):.3f}); "
               f"force max|err| {float((fk - fp).abs().max()):.3e} "
-              f"(max |f| {float(fk.abs().max()):.3f}); max |new - baseline| density "
-              f"{diffs['density']:.3e}, force {diffs['force']:.3e}; widest window "
+              f"(max |f| {float(fk.abs().max()):.3f}); max |tiled - density_baseline| "
+              f"{diff:.3e}; widest window "
               f"{int(count.max())}; max p {float(p.max()):.3f}; {card}")
         rows, need, frac = staging
         print(f"step {label}: candidate pairs {cand}, within h {within}, force pairs "
-              f"{apart}; baseline lane efficiency {lane_eff:.4f}; tiled density "
+              f"{apart}; tiled density "
               f"(T {fused.DENSITY_TILE}, S {fused.DENSITY_CHUNK}, staging from "
               f"{fused.DENSITY_STAGE_MIN}): blocks staged {frac:.4f}, {rows} rows staged / "
               f"{need} needed = {rows / max(need, 1):.4f}; tiled force stages nothing; {card}")
@@ -568,26 +557,21 @@ def kernel_phase(card: str, dev) -> dict:
             "force": 9 * cand + 32 * apart,
         }
         calls = {
-            "density": (lambda: fused.density_baseline(*xyz, key, starts, cfg),
-                        lambda: fused.density(*xyz, key, starts, cfg),
+            "density": (lambda: fused.density(*xyz, key, starts, cfg),
                         lambda: fused.density_plain(*xyz, key, starts, cfg)),
-            "force": (lambda: fused.force_baseline(*xyz, *vxyz, rho, p, key, starts, cfg),
-                      lambda: fused.force(*xyz, *vxyz, rho, p, key, starts, cfg),
+            "force": (lambda: fused.force(*xyz, *vxyz, rho, p, key, starts, cfg),
                       lambda: fused.force_plain(*xyz, *vxyz, rho, p, key, starts, cfg)),
         }
-        for name, (base, new, plain) in calls.items():
-            turns = [graph_ms(fn) for fn in (base, new, new, base)]
-            row = dict(ms=(turns[1] + turns[2]) / 2, baseline_ms=(turns[0] + turns[3]) / 2,
-                       plain_ms=time_ms(plain, 3), library_ms=None)
+        for name, (kern, plain) in calls.items():
+            row = dict(ms=graph_ms(kern), plain_ms=time_ms(plain, 3), library_ms=None)
             row["bound_ms"], row["bound_by"] = bound(nbytes[name], flops[name])
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             results[name]["by_step"][label] = row
-            print(f"time {name} at step {label}: baseline, tiled, tiled, baseline "
-                  f"{', '.join(f'{t:.4f}' for t in turns)} ms; plain {row['plain_ms']:.4f} ms; "
+            print(f"time {name} at step {label}: tiled {row['ms']:.4f} ms; plain "
+                  f"{row['plain_ms']:.4f} ms; "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes[name]} B, "
                   f"{flops[name]} flop), share {row['share_of_bound']:.4f}; tiled "
-                  f"{cand / row['ms'] / 1e6:.2f} Gpair/s, baseline "
-                  f"{cand / row['baseline_ms'] / 1e6:.2f} Gpair/s (N={N_MAIN}; {card})")
+                  f"{cand / row['ms'] / 1e6:.2f} Gpair/s (N={N_MAIN}; {card})")
         results["density"]["by_step"][label]["candidate_pairs"] = cand
         results["force"]["by_step"][label].update(candidate_pairs=cand, force_pairs=apart)
         # the force's packing pass alone (part of the tiled force's time above)
@@ -596,30 +580,22 @@ def kernel_phase(card: str, dev) -> dict:
         print(f"time force packing at step {label}: {pack_ms:.4f} ms of the tiled force's "
               f"{results['force']['by_step'][label]['ms']:.4f} (N={N_MAIN}; {card})")
 
-        def rank_turns(q):
-            return [graph_ms(lambda: fn(key, q, nc))
-                    for fn in (qrank.rank_queries_baseline, qrank.rank_queries,
-                               qrank.rank_queries, qrank.rank_queries_baseline)]
-
-        turns = rank_turns(cells)
-        row = dict(ms=(turns[1] + turns[2]) / 2, baseline_ms=(turns[0] + turns[3]) / 2,
+        row = dict(ms=graph_ms(lambda: qrank.rank_queries(key, cells, nc)),
                    plain_ms=time_ms(lambda: qrank.rank_queries_plain(key, cells, nc), 21),
                    library_ms=graph_ms(lambda: torch.searchsorted(key, cells, out_int32=True)),
                    blocks=shares["cells"])
         row["bound_ms"], row["bound_by"] = bound(nbytes["rank"], flops["rank"])
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         results["rank"]["by_step"][label] = row
-        print(f"time rank at step {label}: baseline, new, new, baseline "
-              f"{', '.join(f'{t:.4f}' for t in turns)} ms; plain "
+        print(f"time rank at step {label}: {row['ms']:.4f} ms; plain "
               f"{row['plain_ms']:.4f} ms, torch.searchsorted {row['library_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes['rank']} B), share "
               f"{row['share_of_bound']:.4f} (N={N_MAIN}; {card})")
         if label == TIMED_STATE:
-            turns = rank_turns(query_sets["unsorted"])
-            row["unsorted_ms"] = (turns[1] + turns[2]) / 2
-            row["unsorted_baseline_ms"] = (turns[0] + turns[3]) / 2
-            print(f"time rank at step {label} on unsorted queries: baseline, new, new, "
-                  f"baseline {', '.join(f'{t:.4f}' for t in turns)} ms (N={N_MAIN}; {card})")
+            unsorted = query_sets["unsorted"]
+            row["unsorted_ms"] = graph_ms(lambda: qrank.rank_queries(key, unsorted, nc))
+            print(f"time rank at step {label} on unsorted queries: {row['unsorted_ms']:.4f} ms "
+                  f"(N={N_MAIN}; {card})")
             # One block for each SM: a block's own chain of loads and barriers
             # plus the launch, with nothing queued behind it.
             few = cells[: H100_SMS * qrank.BLOCK_QUERIES]
@@ -2705,7 +2681,6 @@ def main() -> int:
         return torch.randint(0, 3, (count,), device=dev, generator=gen).float()
 
     probe_err = {"fma_probe": 0.0, "density_mix": 0.0, "loop_probe": 0.0}
-    loop_diff = {}  # variant -> max |new - first design| at R rounds
 
     def hold(name, got, want, rtol):
         torch.cuda.synchronize()
@@ -2752,18 +2727,13 @@ def main() -> int:
             for rounds in MIX_ROUNDS:
                 got = probes.density_mix(t, c, pt, rounds)
                 hold("density_mix", got, probes.density_mix_plain(t, c, pt, rounds), rtol)
-                if dtype == torch.bfloat16:
-                    require(torch.equal(got, probes.density_mix_baseline(t, c, pt, rounds)),
-                            f"bf16 density mix differs from its first design (pt {pt}, "
-                            f"{rounds} rounds)")
     pt, bl, cap = 64, 256, loop_script.CAP
     t, cand = uniform((pt, 4), 1.0, 1.05), uniform((8, cap), 1.0, 1.05)
     # The loop probe with its candidates staged in shared memory and, for a
     # copy of cand 4 bytes off a 16-byte boundary, which it cannot stage,
     # read from device memory. 67 rounds are no multiple of the rounds a loop
     # iteration takes, 1 round runs the loop of single rounds alone; the
-    # dynamic-trip variants run desc[rounds] blocks, not rounds. The first
-    # design at the bar it was ported at.
+    # dynamic-trip variants run desc[rounds] blocks, not rounds.
     cand_off = torch.empty(8 * cap + 1, device=dev)[1:].view(8, cap).copy_(cand)
     require(probes.loop_stage_blocks("V3", cand, bl) > 0
             and probes.loop_stage_blocks("V0", cand_off, bl) == 0,
@@ -2774,14 +2744,9 @@ def main() -> int:
             want = probes.loop_probe_plain(variant, desc, t, cand, pt, bl)
             for c in (cand, cand_off):
                 hold("loop_probe", probes.loop_probe(variant, desc, t, c, pt, bl), want, 1e-5)
-            if rounds in probes.BASELINE_STATIC_ROUNDS:
-                got = probes.loop_probe_baseline(variant, desc, t, cand, pt, bl)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     print(f"probes at {r} rounds (dynamic trips also at desc[{r}] = {r - 23}; the density "
-          f"mix at {MIX_ROUNDS} rounds, bf16 bit for bit its first design; the loop probe "
-          f"at {LOOP_ROUNDS} rounds, staged and from device memory, its first design at "
-          f"{r}) equal their plain versions; max|err| {probe_err}")
+          f"mix at {MIX_ROUNDS} rounds; the loop probe at {LOOP_ROUNDS} rounds, staged and "
+          f"from device memory) equal their plain versions; max|err| {probe_err}")
 
     # At the entry points' round counts. f32 FMA on inputs where a fused and
     # a split multiply-add round alike: bit-equal, so every round must run
@@ -2802,14 +2767,8 @@ def main() -> int:
             got = probes.loop_probe(variant, desc, t, cand, pt, bl)
             want = probes.loop_probe_plain(variant, desc, t, cand, pt, bl)
             err, shift = hold_sum(got, want, rounds)
-            line = (f"loop_probe {variant} at {rounds} rounds: max|err| {err:.3e}, mean "
-                    f"difference {shift:.3e} of a round's term")
-            if rounds == loop_script.R:
-                first = probes.loop_probe_baseline(variant, desc, t, cand, pt, bl)
-                hold_sum(first, want, rounds)
-                loop_diff[variant] = float((got - first).abs().max())
-                line += f"; max |new - first design| {loop_diff[variant]:.3e}"
-            print(line)
+            print(f"loop_probe {variant} at {rounds} rounds: max|err| {err:.3e}, mean "
+                  f"difference {shift:.3e} of a round's term")
 
     probe_fns = {"fma_probe": probes.fma_probe, "density_mix": probes.density_mix,
                  "loop_probe": probes.loop_probe}
@@ -2896,21 +2855,7 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share "
               f"{r['bound_ms'] / r['ms']:.4f}; {card}")
 
-    # The density mix against its first design, in turns, per call at the
-    # entry point's round count.
     mix = results["density_mix"]
-    for dtype in probes.DTYPES:
-        for pt in (8, 64, 128, 256):
-            tt = torch.ones((max(pt, 8), 4), dtype=dtype, device=dev)
-            cc = torch.ones((8, 128), dtype=dtype, device=dev)
-            turns = [timed(lambda: fn(tt, cc, pt, mix_r), 6) * 1e3
-                     for fn in (probes.density_mix_baseline, probes.density_mix,
-                                probes.density_mix, probes.density_mix_baseline)]
-            if (dtype, pt) == (torch.float32, 128):
-                mix["baseline_ms"] = (turns[0] + turns[3]) / 2
-            print(f"time density_mix ({vpu_microbench.dtype_name(dtype)}, pt {pt}, {mix_r} "
-                  f"rounds): baseline, new, new, baseline "
-                  f"{', '.join(f'{t:.4f}' for t in turns)} ms per call; {card}")
 
     # The issue ceiling: a round's instructions on every scheduler of the
     # card, one warp instruction a cycle each. From the SASS of the f32
@@ -2936,8 +2881,8 @@ def main() -> int:
     print(f"density_mix issue ceiling (float32, pt 128, {mix_r} rounds): {per_round:.3f} "
           f"instructions x {128 * 128} pair-lanes x {mix_r} rounds / ({sms} SMs x 4 schedulers "
           f"x 32 lanes x {sm_mhz:.0f} MHz) = {ceiling_ms:.4f} ms; the kernel ({mix['ms']:.4f} "
-          f"ms) reaches {ceiling_ms / mix['ms']:.4f} of it, the baseline ({mix['baseline_ms']:.4f} "
-          f"ms) {ceiling_ms / mix['baseline_ms']:.4f}; bound {mix['bound_ms']:.4f} ms; {card}")
+          f"ms) reaches {ceiling_ms / mix['ms']:.4f} of it; bound {mix['bound_ms']:.4f} ms; "
+          f"{card}")
 
     # The density kernel beside the probe: its candidate pairs at the
     # probe's best f32 rate of this run.
@@ -2955,30 +2900,25 @@ def main() -> int:
               f"probe's best {best:.2f} Gpair-lanes/s): the kernel runs at "
               f"{row['mix_ceiling_ms'] / row['ms']:.4f} of the probe's rate; {card}")
 
-    # The loop probe against its first design, in turns: ms a call at R by
-    # CUDA events around the call (the wrapper's host time included) and the
-    # device's ms (10 calls in one CUDA graph).
+    # The loop probe alone: ms a call at R by CUDA events around the call
+    # (the wrapper's host time included) and the device's ms (10 calls in
+    # one CUDA graph, the median of 5 replays).
     loop = results["loop_probe"]
     loop["rates"] = {v: rates[("loop_probe", v)] for v in probes.VARIANTS}
-    loop["max_abs_diff_baseline"] = loop_diff
-    loop["turns"] = {}
+    loop["by_variant"] = {}
     lp_big = torch.from_numpy(rng.uniform(1, 9, (128, 4)).astype(np.float32)).to(dev)
     for tpt, variants in ((64, tuple(probes.VARIANTS)), (8, ("V3", "V5")), (128, ("V3", "V5"))):
         for variant in variants:
-            fns = (probes.loop_probe_baseline, probes.loop_probe, probes.loop_probe,
-                   probes.loop_probe_baseline)
-            calls = [lambda fn=fn: fn(variant, lp_desc, lp_big, lp_c, tpt, 256) for fn in fns]
-            turns = [timed(call, 6) * 1e3 for call in calls]
-            device = [graph_ms(call, reps=5) for call in calls]
-            loop["turns"][f"{variant} pt {tpt}"] = dict(
-                ms=(turns[1] + turns[2]) / 2, baseline_ms=(turns[0] + turns[3]) / 2,
-                device_ms=(device[1] + device[2]) / 2,
-                baseline_device_ms=(device[0] + device[3]) / 2)
-            print(f"time loop_probe ({variant}, pt {tpt}, bl 256, {lp_r} rounds): first design, "
-                  f"new, new, first design {', '.join(f'{x:.4f}' for x in turns)} ms per call, "
-                  f"{', '.join(f'{x:.4f}' for x in device)} ms on the device; {card}")
-    # the row's own numbers: V3 at pt 64 from these turns
-    loop.update(loop["turns"]["V3 pt 64"])
+            def call():
+                return probes.loop_probe(variant, lp_desc, lp_big, lp_c, tpt, 256)
+
+            turn = loop["by_variant"][f"{variant} pt {tpt}"] = dict(
+                ms=timed(call, 6) * 1e3, device_ms=graph_ms(call, reps=5))
+            print(f"time loop_probe ({variant}, pt {tpt}, bl 256, {lp_r} rounds): "
+                  f"{turn['ms']:.4f} ms per call, {turn['device_ms']:.4f} ms on the device; "
+                  f"{card}")
+    # the row's own numbers: V3 at pt 64
+    loop.update(loop["by_variant"]["V3 pt 64"])
 
     # Its issue ceilings, from the SASS of the staged main loops of V0, V3 and
     # V5 (the static trip at R, the two dynamic ones): a round's instructions
@@ -2996,7 +2936,7 @@ def main() -> int:
         per_round = main_loops[0][0] / flight
         ceiling_ms = per_round * 64 * 256 * lp_r / (sms * 4 * 32 * sm_mhz * 1e6) * 1e3
         ceiling_rate = sms * 4 * 32 * sm_mhz * 1e6 / per_round / 1e9
-        turn = loop["turns"][f"{variant} pt 64"]
+        turn = loop["by_variant"][f"{variant} pt 64"]
         loop["issue_ceiling_ms"][variant] = ceiling_ms
         loop["sass_instructions_per_round"][variant] = per_round
         print(f"loop_probe {variant} SASS: loops (instructions, LDS) {loops}; the staged main "
@@ -3006,8 +2946,7 @@ def main() -> int:
               f"on {sms} SMs): the call ({turn['ms']:.4f} ms) reaches "
               f"{ceiling_ms / turn['ms']:.4f} of it, its device time ({turn['device_ms']:.4f} "
               f"ms) {ceiling_ms / turn['device_ms']:.4f}, the slope ({loop['rates'][variant]:.2f} "
-              f"Gpair-lanes/s) {loop['rates'][variant] / ceiling_rate:.4f}; the first design "
-              f"({turn['baseline_ms']:.4f} ms) {ceiling_ms / turn['baseline_ms']:.4f}; {card}")
+              f"Gpair-lanes/s) {loop['rates'][variant] / ceiling_rate:.4f}; {card}")
     loop["best_load_bytes_per_clock_per_sm"] = (
         loop["rates"]["V3"] * 1e9 * 12 / (sms * sm_mhz * 1e6))
     print(f"loop_probe V3 {loop['rates']['V3']:.2f} Gpair-lanes/s: its three 4-byte loads a "
@@ -3116,18 +3055,16 @@ def main() -> int:
             r["graph_launches"] = graph_launches[name]
         if name in branch_launches:
             r["branch_launches"] = branch_launches[name]
-        r.setdefault("baseline_ms", None)
         r.setdefault("library_ms", None)
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
     table = [
         {"name": name, "launches": launches[name],
          **{k: r[k] for k in ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-                              "bound_ms", "bound_by", "library_ms", "baseline_ms",
-                              "share_of_bound", "launches_per_replay", "at")},
+                              "bound_ms", "bound_by", "library_ms", "share_of_bound", "launches_per_replay", "at")},
          **{k: r[k] for k in ("max_abs_diff_baseline", "by_step", "issue_ceiling_ms",
                               "sass_instructions_per_round", "sass_loads_per_round",
-                              "best_load_bytes_per_clock_per_sm", "rates", "turns",
-                              "device_ms", "baseline_device_ms", "dist_launches",
+                              "best_load_bytes_per_clock_per_sm", "rates", "by_variant",
+                              "device_ms", "dist_launches",
                               "bench_launches", "graph_launches", "branch_launches", "body_ms",
                               "pack_max_abs_err", "pack_launches")
             if k in r}}

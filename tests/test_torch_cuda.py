@@ -9,17 +9,17 @@ not need.) Bars: ranks exact; density rtol 1e-5; force rtol 1e-4 with
 atol 1e-4, and on the dense blob an atol at the float32 floor of its sums
 (see the test). The kernels sum in another order than the plain versions,
 and nvcc contracts a*b+c into FMA. The tiled density kernel equals the
-baseline kernel (the first design) bit for bit; the tiled force (packed
+density's first design (csrc/sph_baseline.cu) bit for bit; the tiled force (packed
 rows, 1/(2ρ) once a particle, rsqrt) is held at the force bar. Its packed
 rows equal the fields stacked with 1/(2ρ) bit for bit (one row, 129 rows
 and one rank's rows with halo), and every force launch of a timed step, a
 chain step and a chunk packs once. The block-narrowed rank
 kernel (csrc/qrank.cu) is exact on every path: spans staged in shared
 memory by 16-byte and by 4-byte copies, wide spans searched in device
-memory, scalar loads for ragged tails and pointers off 16 bytes; it equals
-the first design and, inside a replayed CUDA graph, its eager launch. The
+memory, scalar loads for ragged tails and pointers off 16 bytes; inside a
+replayed CUDA graph it equals its eager launch. The
 density mix is held at 1, 7, 64 and 65 rounds (its loop takes several
-rounds at once) and in bf16 equals its first design bit for bit. The rate probes at 64 rounds: f32 FMA,
+rounds at once). The rate probes at 64 rounds: f32 FMA,
 f32 density mix and the loop probe rtol 1e-5 (FMA against separately
 rounded ops; rsqrtf); bf16 FMA and bf16 density mix bit-equal. At the
 entry points' round counts: the f32 FMA bit-equal on inputs where a fused
@@ -29,7 +29,7 @@ and a mean difference under 1 % of one round's term. The loop probe
 1 round (its loop takes several rounds at once), a desc 2 bytes off a
 16-byte boundary, a cand of 512 lanes and one too wide to stage, pt 8 and
 128, columns off a 32-lane slice, and a cand off 16 bytes (device memory
-at the entry point's shape); its first design at the same bars, the two beside each other, and
+at the entry point's shape), and
 inside a replayed CUDA graph. The copy of the
 positions to the host equals a synchronous copy exactly. The timed step
 that carries its state in the graphs' own tensors equals the path that
@@ -122,17 +122,14 @@ def test_rank_kernel_equals_plain(dev, kind):
 
 
 def _rank_both(key, q, nc):
-    """The kernel's ranks, checked against the plain version and the first
-    design's, with one launch counted on each wrapper."""
-    before = (qrank.rank_queries.launches, qrank.rank_queries_baseline.launches)
+    """The kernel's ranks, checked against the plain version, with one
+    launch counted."""
+    before = qrank.rank_queries.launches
     got, ovf = qrank.rank_queries(key, q, nc)
-    base, _ = qrank.rank_queries_baseline(key, q, nc)
     torch.cuda.synchronize()
     assert ovf == 0 and got.dtype == torch.int32 and got.shape == q.shape
-    assert (qrank.rank_queries.launches, qrank.rank_queries_baseline.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert qrank.rank_queries.launches == before + 1
     torch.testing.assert_close(got, qrank.rank_queries_plain(key, q, nc), rtol=0, atol=0)
-    assert torch.equal(got, base)
     return got
 
 
@@ -313,7 +310,6 @@ def test_tiled_kernels_equal_plain_and_baseline(dev, kind):
     atol = _force_atol(kind, cfg, cl, ref)
     f = fused.force(*args)
     torch.testing.assert_close(f, ref, rtol=1e-4, atol=atol)
-    torch.testing.assert_close(fused.force_baseline(*args), ref, rtol=1e-4, atol=atol)
     assert torch.all(f[:, ~cl.valid_sorted] == 0)
 
 
@@ -727,8 +723,8 @@ def test_fma_probe_equals_plain(dev, dtype, streams):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_density_mix_equals_plain(dev, dtype, pt, rounds):
     """1 and 7 rounds run only the loop of single rounds, 64 only the loop
-    that takes several rounds at once, 65 both. bf16 equals the first
-    design bit for bit; f32 is held to it at the plain version's bar."""
+    that takes several rounds at once, 65 both. bf16 equals the plain
+    version bit for bit; f32 is held to it at rtol 1e-5."""
     g = torch.Generator(device=dev).manual_seed(pt)
     t = torch.empty((max(pt, 8), 4), device=dev).uniform_(1.0, 1.05, generator=g)
     c = torch.empty((8, 128), device=dev).uniform_(1.0, 1.05, generator=g)
@@ -736,13 +732,10 @@ def test_density_mix_equals_plain(dev, dtype, pt, rounds):
     c[3] = torch.randint(0, 3, (128,), device=dev, generator=g).float()
     t, c = t.to(dtype), c.to(dtype)
     rtol = 1e-5 if dtype == torch.float32 else 0
-    before = (probes.density_mix.launches, probes.density_mix_baseline.launches)
+    before = probes.density_mix.launches
     got = probes.density_mix(t, c, pt, rounds)
-    base = probes.density_mix_baseline(t, c, pt, rounds)
-    assert (probes.density_mix.launches, probes.density_mix_baseline.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert probes.density_mix.launches == before + 1
     _same(got, probes.density_mix_plain(t, c, pt, rounds), rtol)
-    _same(got, base, rtol)
     assert (got != 0).any() and (got == 0).any()  # the masks cut some lanes
 
 
@@ -855,29 +848,6 @@ def test_loop_probe_on_every_path(dev, variant, case):
     assert (want != 0).all() or (variant == "V4" and case == "rounds1")
 
 
-@pytest.mark.parametrize("rounds", [64, 4096])
-@pytest.mark.parametrize("variant", list(probes.VARIANTS))
-def test_loop_probe_baseline_equals_plain_and_new(dev, variant, rounds):
-    """The first design at the bars it was ported at, and the new kernel
-    beside it: both within rounds·eps of plain, so within twice that of each
-    other (they add the same terms in the same order and mostly agree bit
-    for bit)."""
-    args = _loop_inputs(dev, rounds, rounds, rounds + 1)
-    before = (probes.loop_probe.launches, probes.loop_probe_baseline.launches)
-    first = probes.loop_probe_baseline(variant, *args)
-    got = probes.loop_probe(variant, *args)
-    assert (probes.loop_probe.launches, probes.loop_probe_baseline.launches) == (
-        before[0] + 1, before[1] + 1)
-    want = probes.loop_probe_plain(variant, *args)
-    torch.cuda.synchronize()
-    rtol = 1e-5 if rounds <= 64 else rounds * torch.finfo(torch.float32).eps
-    torch.testing.assert_close(first, want, rtol=rtol, atol=0)
-    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
-    torch.testing.assert_close(got, first, rtol=2 * rtol, atol=0)
-    shift = float((first - want).mean()) / (float(want.mean()) / rounds)
-    assert abs(shift) < 0.01
-
-
 def test_loop_probe_in_a_replayed_graph_equals_eager(dev):
     """The launch is capturable: no host read, no allocation besides out."""
     args = _loop_inputs(dev, 64, 64, 9)
@@ -903,10 +873,7 @@ def test_static_trip_refuses_other_round_counts(dev):
     cand = torch.ones((8, 512), device=dev)
     with pytest.raises(ValueError):
         probes.loop_probe("V0", desc, t, cand, 8, 256)
-    with pytest.raises(ValueError):
-        probes.loop_probe_baseline("V1", desc, t, cand, 8, 256)
     probes.loop_probe("V2", desc, t, cand, 8, 256)  # the trip count comes from desc
-    probes.loop_probe_baseline("V2", desc, t, cand, 8, 256)
 
 
 # ------------------------------------------- CUDA graphs of chained steps

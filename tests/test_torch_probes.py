@@ -175,14 +175,6 @@ def test_density_mix_continues_in_round_order(dtype, a, b):
         assert not torch.equal(whole, probes.density_mix_plain(t, c, pt, a + b - 1))
 
 
-def test_density_mix_baseline_takes_the_plain_version_on_the_cpu():
-    t, c = (torch.from_numpy(a) for a in _mix_inputs(8, 2))
-    before = (probes.density_mix.launches, probes.density_mix_baseline.launches)
-    assert torch.equal(probes.density_mix_baseline(t, c, 8, 5),
-                       probes.density_mix_plain(t, c, 8, 5))
-    assert (probes.density_mix.launches, probes.density_mix_baseline.launches) == before
-
-
 def _loop_inputs(pt, bl, cap, rounds, seed):
     rng = np.random.default_rng(seed)
     t = rng.uniform(1.0, 1.05, (max(pt, 8), 4)).astype(np.float32)
@@ -324,21 +316,6 @@ def test_loop_probe_constants_mirror_the_source():
         return tuple(int(n) for n in re.findall(r"case (\d+):", body))
 
     assert cases(src, "launch_static_trip") == probes.STATIC_ROUNDS
-    with open(os.path.join(csrc, "sph_baseline.cu")) as f:
-        assert cases(f.read(), "launch_static_trip_baseline") == probes.BASELINE_STATIC_ROUNDS
-    assert set(probes.BASELINE_STATIC_ROUNDS) <= set(probes.STATIC_ROUNDS)
-
-
-def test_loop_probe_baseline_takes_the_plain_version_on_the_cpu():
-    desc, t, cand = _loop_tensors(8, 256, 512, 5, 5, 0)
-    before = (probes.loop_probe.launches, probes.loop_probe.staged,
-              probes.loop_probe_baseline.launches)
-    for variant in probes.VARIANTS:  # no static trip count to refuse on the CPU
-        want = probes.loop_probe_plain(variant, desc, t, cand, 8, 256)
-        assert torch.equal(probes.loop_probe_baseline(variant, desc, t, cand, 8, 256), want)
-        assert torch.equal(probes.loop_probe(variant, desc, t, cand, 8, 256), want)
-    assert (probes.loop_probe.launches, probes.loop_probe.staged,
-            probes.loop_probe_baseline.launches) == before
 
 
 @pytest.mark.parametrize(
@@ -354,13 +331,9 @@ def test_loop_probe_baseline_takes_the_plain_version_on_the_cpu():
                                   torch.ones(8, 4), torch.ones(8, 256), 8, 256),
         lambda: probes.loop_probe("V0", torch.zeros(12, dtype=torch.int16),
                                   torch.ones(8, 4), torch.ones(8, 128), 8, 256),
-        lambda: probes.loop_probe_baseline("V9", torch.zeros(12, dtype=torch.int16),
-                                           torch.ones(8, 4), torch.ones(8, 256), 8, 256),
-        lambda: probes.loop_probe_baseline("V3", torch.zeros(4, dtype=torch.int16),
-                                           torch.ones(8, 4), torch.ones(8, 256), 8, 256),
     ],
     ids=["fma-dtype", "fma-streams", "mix-rows", "mix-mixed-dtypes", "loop-variant",
-         "loop-desc-dtype", "loop-narrow-cand", "baseline-variant", "baseline-short-desc"],
+         "loop-desc-dtype", "loop-narrow-cand"],
 )
 def test_probe_wrappers_reject_bad_inputs(call):
     with pytest.raises((TypeError, ValueError)):

@@ -189,11 +189,3 @@ def test_block_spans_defaults_are_the_kernel_shape():
     lo, hi, staged = block_spans(keys, q)
     assert lo.numel() == -(-(NC + 2) // qrank.BLOCK_QUERIES) and bool(staged.all())
 
-
-def test_rank_baseline_takes_the_plain_version_on_the_cpu():
-    keys = torch.from_numpy(_span_keys("random", 512, 4))
-    q = torch.from_numpy(_span_queries("above", 5))
-    before = (rank_queries.launches, qrank.rank_queries_baseline.launches)
-    got, ovf = qrank.rank_queries_baseline(keys, q, NC)
-    assert ovf == 0 and torch.equal(got, rank_queries_plain(keys, q, NC))
-    assert (rank_queries.launches, qrank.rank_queries_baseline.launches) == before

@@ -261,7 +261,7 @@ def test_port_never_imports_jax():
         "import sys, tpusph_torch, tpusph_torch.cli, tpusph_torch.core.io, "
         "tpusph_torch.utils.cuda_build, tpusph_torch.kernels.probes, "
         "tpusph_torch.scripts.vpu_microbench, tpusph_torch.scripts.loop_probe, "
-        "tpusph_torch.scripts.loop_probe_sweep, tpusph_torch.scripts.chain_turns, "
+        "tpusph_torch.scripts.loop_probe_sweep, "
         "tpusph_torch.interact.impulse, tpusph_torch.viz.render, "
         "tpusph_torch.viz.project, tpusph_torch.engine.graphs, tpusph_torch.engine.step, "
         "tpusph_torch.engine.simulator, tpusph_torch.neighbors.cell_list, "

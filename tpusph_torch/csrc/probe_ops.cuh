@@ -1,5 +1,4 @@
-// Arithmetic of the density-mix probe in its dtype, shared by the probe
-// (probes.cu) and its first design (sph_baseline.cu).
+// Arithmetic of the density-mix probe (probes.cu) in its dtype.
 #pragma once
 
 #include <cuda_bf16.h>

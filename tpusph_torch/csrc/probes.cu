@@ -104,8 +104,8 @@ __global__ void __launch_bounds__(kProbeBlock)
 //
 // One thread per pair-lane. A round is a chain load -> sub -> mul/fma ->
 // max -> mul -> mul -> select -> add, and a (128, 128) block is 512 warps
-// on the card's 528 schedulers, one warp each. The first design
-// (sph_baseline.cu) took the rounds one by one in blocks of 128 threads.
+// on the card's 528 schedulers, one warp each. The first design took the
+// rounds one by one in blocks of 128 threads.
 // Here the loop body takes kMixUnroll = 16 rounds: it issues their 64
 // loads, computes the 16 terms, which do not depend on each other, and adds
 // them to the accumulator in round order, so the sum is the same bits as
@@ -200,7 +200,7 @@ __global__ void __launch_bounds__(kMixBlock)
 //             last block is not taken).
 // desc is the TPU's scalar-prefetch table (int16, rounds + 8 entries).
 //
-// The first design (sph_baseline.cu) gave each pair-lane a thread in blocks
+// The first design gave each pair-lane a thread in blocks
 // of 128 and took the rounds one by one: a 2-byte load of the desc entry,
 // then the three candidate loads whose address needs it, then the
 // arithmetic, about 160 clocks a round for some 20 instructions, with one

@@ -5,14 +5,14 @@
 // / _qrank_kernel. The TPU kernel rests on one fact: chunks of queries that
 // are consecutive in value have key spans that partition the keys, so each
 // chunk needs only a window of them. This kernel uses the same fact in the
-// card's own form, a span staged in shared memory. (The first design, one
-// thread per query searching the whole array, is kept in sph_baseline.cu.)
+// card's own form, a span staged in shared memory.
 //
 // What bounds it on the H100: bytes. A step asks 1,000,002 queries (every
 // cell of the 100^3 grid plus two) of 262,144 keys: 1 MB of keys, 4 MB of
-// queries and 4 MB of ranks, 9 MB a call, 0.0027 ms at 3.35 TB/s. The first
-// design spent its time elsewhere, on about log2(n) = 18 dependent loads
-// from L2 for every query. What this design does about it:
+// queries and 4 MB of ranks, 9 MB a call, 0.0027 ms at 3.35 TB/s. One
+// thread a query searching the whole array (the first design) spends its
+// time elsewhere, on about log2(n) = 18 dependent loads from L2 for every
+// query. What this design does about it:
 //
 //   * A block owns kRankQueries = 1,024 consecutive queries, four a thread,
 //     read and written as one 16-byte vector (scalar loads for a ragged tail
@@ -38,7 +38,7 @@
 //     interleaved so that four loads are in flight. Sweeping such a span
 //     through the stage in chunks instead moves the whole span through
 //     every block and measured 2 to 4 times slower on unsorted queries.
-//     On those this kernel and the first design wait for the same thing,
+//     On those this kernel and one thread a query wait for the same thing,
 //     about 8 reads a query of scattered 32-byte sectors from L2 (the upper
 //     levels of the search stay in L1), and this one has less L1 left
 //     beside its stage: there it is the slower of the two (PERF.md).

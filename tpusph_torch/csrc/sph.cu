@@ -8,8 +8,9 @@
 //   density_pallas / _density_kernel -> tpusph_density (density_tile_kernel)
 //   force_pallas   / _force_kernel   -> tpusph_force_pack (force_tile_kernel_pack),
 //                                        then tpusph_force (force_tile_kernel)
-// The first design, one thread per target gathering straight from device
-// memory, is kept in sph_baseline.cu to be timed against this one.
+// The density's first design, one thread per target gathering straight
+// from device memory, stays in sph_baseline.cu as the reference this
+// density is held to bit for bit.
 //
 // The candidates. For neighbour column (dy, dz), off = dy*C + dz*C*C, a
 // target with key k takes the sorted rows starts[lo] .. starts[hi] with
@@ -35,13 +36,13 @@
 // where windows are short, so a barrier serves many chunks; stage j+1 is
 // copied while stage j is summed. Each thread sums its window's part of
 // each chunk in ascending row order. A sparser density block, and every
-// force block, walks its 9 windows from device memory as the baseline
+// force block, walks its 9 windows from device memory as the first design
 // does: there the loads hit L1, since neighbouring targets share most of
 // their windows, and staging costs more instructions than it saves
 // (PERF.md: the force was slower staged at every state measured).
-// Either way each target adds its pairs in the baseline's order, and the
-// density with the baseline's per-pair expressions, so the density equals
-// the baseline's bit for bit. kernels/fused.py::chunk_walk is the staged
+// Either way each target adds its pairs in the first design's order, and
+// the density with its per-pair expressions, so the density equals
+// sph_baseline.cu's bit for bit. kernels/fused.py::chunk_walk is the staged
 // walk in plain PyTorch.
 //
 // The force's rows. A pass of force_tile_kernel_pack, one thread a row,
@@ -100,7 +101,8 @@
 // by instruction throughput (loop and window bookkeeping, divergence)
 // and by their load instructions' latency and L1 wavefronts, which the
 // force's packed rows cut to one 16-byte load a candidate and one a pair.
-// What the design does about the baseline's three costs:
+// What the design does about the first design's costs (one thread a
+// target):
 //   - load latency: all starts entries are loaded up front, and dense
 //     density blocks read their candidates from shared memory, staged a
 //     stage ahead;
@@ -109,10 +111,10 @@
 //     several columns;
 //   - divides: the force takes 1/(2 rho_j) once a particle, in the
 //     packing pass, as the TPU kernel does (fused.py:34-35), and no divide
-//     a pair (the baseline has three); r comes from rsqrt, a few ulps from
-//     the baseline's sums;
+//     a pair (the first design took three); r comes from rsqrt, a few ulps
+//     from the first design's sqrt;
 //   - loads: the force reads a candidate as one 16-byte row and a pair as
-//     one more (the baseline, three 4-byte loads a candidate and five
+//     one more (the first design, three 4-byte loads a candidate and five
 //     more a pair).
 
 #include <climits>
@@ -141,9 +143,9 @@ constexpr int kStageMin = 96;
 constexpr int kPieces = 16;
 // Fields a stage holds per row: x, y, z.
 constexpr int kStaged = 3;
-// Warps an SM should hold (of its 64): as many as the baseline force
-// kernel reaches, so that a block that reads device memory hides its
-// latency as well; caps the registers a thread may use at 48.
+// Warps an SM should hold (of its 64): as many as a force kernel of one
+// thread a target reaches, so that a block that reads device memory hides
+// its latency as well; caps the registers a thread may use at 48.
 constexpr int kWarpsPerSm = 40;
 constexpr int kBlocksPerSm = kWarpsPerSm * 32 / kTile;
 

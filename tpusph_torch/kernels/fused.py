@@ -21,10 +21,10 @@ The kernels give a block of `DENSITY_TILE` consecutive targets its 9
 windows at once. A density block whose targets are dense sweeps the union
 of its windows, one ascending sweep per column, staged through shared
 memory in chunks of at most `DENSITY_CHUNK` rows; `chunk_walk` is that
-sweep in plain PyTorch. `density_baseline` and `force_baseline` launch the
-first design (`csrc/sph_baseline.cu`, one thread per target gathering
-from device memory), kept to be timed beside the tiled kernels; the engine
-never calls them.
+sweep in plain PyTorch. `density_baseline` launches the density's first
+design (`csrc/sph_baseline.cu`, one thread per target gathering from
+device memory), the reference the tiled density is held to bit for bit,
+staged blocks included; the engine never calls it.
 
 The plain versions vectorise that walk as a padded gather, [B, 9, W] per
 chunk of B = cfg.chunk_size targets, W the largest window count (read
@@ -237,7 +237,8 @@ density.launches = 0
 
 
 def density_baseline(x, y, z, key_sorted, starts, cfg: SimConfig):
-    """`density` on the first design's kernel, `tpusph_density_baseline`."""
+    """`density` on the first design's kernel, `tpusph_density_baseline`:
+    the same sums in the same order as `density`, so the same bits."""
     rho = _launch_density("tpusph_density_baseline", x, y, z, key_sorted, starts, cfg)
     if rho.is_cuda:
         density_baseline.launches += 1
@@ -345,24 +346,6 @@ def _launch_pack(fields: dict, n: int, dev) -> tuple[torch.Tensor, torch.Tensor]
 force_pack.launches = 0
 
 
-def _launch_force(entry, inputs, key_sorted, starts, cfg: SimConfig, *extra):
-    """`entry` on the CUDA tensors `inputs` (its leading pointers); `extra`:
-    its arguments between f and the stream (`tpusph_force`'s walk counter)."""
-    from tpusph_torch.utils import cuda_build
-
-    dev, n = key_sorted.device, key_sorted.shape[0]
-    f = inputs[0].new_empty((3, n))
-    with torch.cuda.device(dev):
-        err = getattr(cuda_build.library(), entry)(
-            *(t.data_ptr() for t in inputs),
-            key_sorted.data_ptr(), starts.data_ptr(), n, cfg.num_cells_per_dim,
-            cfg.num_cells, f32(cfg.h), f32(cfg.h2), f32(cfg.eps), f32(cfg.mass),
-            f32(cfg.v_kernel_coeff), f32(cfg.viscosity), f.data_ptr(), *extra, stream_of(dev),
-        )
-    cuda_build.check(err, entry)
-    return f
-
-
 def force(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig,
           walk: torch.Tensor | None = None) -> torch.Tensor:
     """Force on each sorted target, f32[3, n] (see `force_plain`). For CUDA
@@ -370,8 +353,8 @@ def force(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig,
     them, both on the current stream: blocks of 128 targets reading device
     memory, a candidate as one 16-byte row (x, y, z, 1/(2ρ)) and a pair
     within h as one more (vx, vy, vz, p), so 1/(2ρ_j) is taken once a
-    particle where `force_baseline` takes three divides a pair; r from
-    rsqrt, within a few ulps of the baseline's sums.
+    particle, not in three divides a pair; r from rsqrt rather than sqrt,
+    a few ulps apart.
 
     `walk`: an int64[3] counter on the rows' device, zeroed by the caller,
     to which the pass adds its walk (WALK, `force_walk`): on a card the
@@ -389,27 +372,21 @@ def force(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig,
                 walk[:2] += got[:2]
                 walk[2:] = torch.maximum(walk[2:], got[2:])
         return f
-    rows = _launch_pack(fields, n, dev)
-    f = _launch_force("tpusph_force", rows, key_sorted, starts, cfg,
-                      None if walk is None else walk.data_ptr())
+    r0, r1 = _launch_pack(fields, n, dev)
+    from tpusph_torch.utils import cuda_build
+
+    f = r0.new_empty((3, n))
+    with torch.cuda.device(dev):
+        err = cuda_build.library().tpusph_force(
+            r0.data_ptr(), r1.data_ptr(), key_sorted.data_ptr(), starts.data_ptr(), n,
+            cfg.num_cells_per_dim, cfg.num_cells, f32(cfg.h), f32(cfg.h2), f32(cfg.eps),
+            f32(cfg.mass), f32(cfg.v_kernel_coeff), f32(cfg.viscosity), f.data_ptr(),
+            None if walk is None else walk.data_ptr(), stream_of(dev),
+        )
+    cuda_build.check(err, "tpusph_force")
     force.launches += 1
     return f
 
 
 force.launches = 0
 
-
-def force_baseline(x, y, z, vx, vy, vz, rho, p, key_sorted, starts, cfg: SimConfig):
-    """`force` on the first design's kernel, `tpusph_force_baseline`, which
-    reads the eight fields."""
-    fields = dict(x=x, y=y, z=z, vx=vx, vy=vy, vz=vz, rho=rho, p=p)
-    dev, _ = _check_sorted_inputs(fields, key_sorted, starts, cfg)
-    if on_cpu(dev):
-        with plain_version():
-            return force_plain(*fields.values(), key_sorted, starts, cfg)
-    f = _launch_force("tpusph_force_baseline", list(fields.values()), key_sorted, starts, cfg)
-    force_baseline.launches += 1
-    return f
-
-
-force_baseline.launches = 0

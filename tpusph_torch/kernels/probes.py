@@ -35,7 +35,6 @@ VARIANTS = {
 # kernel library instantiates: short checks (one round, a multiple of the
 # rounds in flight and one that is none) and loop_probe.py's R and 4R.
 STATIC_ROUNDS = (1, 64, 67, 4096, 16384)
-BASELINE_STATIC_ROUNDS = (64, 4096, 16384)  # the first design's
 # The loop probe's shape, csrc/probes.cu's constants of the same names.
 LOOP_UNROLL = 32  # kLoopUnroll: rounds in flight a thread
 LOOP_WARPS = 2  # kLoopWarps: warps a block, all on one 32-lane slice
@@ -154,7 +153,11 @@ def density_mix_plain(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) ->
     return acc.to(torch.float32)
 
 
-def _launch_density_mix(entry: str, t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int):
+def density_mix(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) -> torch.Tensor:
+    """The density-mix probe (see `density_mix_plain`); t (≥ pt, 4) and
+    c (8, 128), both f32 or both bf16. Launches `tpusph_density_mix` for
+    CUDA tensors: one thread per pair-lane, several rounds in flight, their
+    terms added in round order."""
     dev = t.device
     _check_dtype("t", t)
     if t.dim() != 2 or t.shape[0] < pt or t.shape[1] != 4:
@@ -167,39 +170,16 @@ def _launch_density_mix(entry: str, t: torch.Tensor, c: torch.Tensor, pt: int, r
 
     out = torch.empty((pt, LANES), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = getattr(cuda_build.library(), entry)(
+        err = cuda_build.library().tpusph_density_mix(
             t.data_ptr(), c.data_ptr(), pt, rounds, int(t.dtype == torch.bfloat16),
             out.data_ptr(), stream_of(dev),
         )
-    cuda_build.check(err, entry)
-    return out
-
-
-def density_mix(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) -> torch.Tensor:
-    """The density-mix probe (see `density_mix_plain`); t (≥ pt, 4) and
-    c (8, 128), both f32 or both bf16. Launches `tpusph_density_mix` for
-    CUDA tensors: one thread per pair-lane, several rounds in flight, their
-    terms added in round order."""
-    out = _launch_density_mix("tpusph_density_mix", t, c, pt, rounds)
-    if out.is_cuda:
-        density_mix.launches += 1
+    cuda_build.check(err, "tpusph_density_mix")
+    density_mix.launches += 1
     return out
 
 
 density_mix.launches = 0
-
-
-def density_mix_baseline(t: torch.Tensor, c: torch.Tensor, pt: int, rounds: int) -> torch.Tensor:
-    """`density_mix` on the first design's kernel (`csrc/sph_baseline.cu`,
-    the rounds one by one), which `chip_smoke.py` and the GPU tests time
-    the probe against."""
-    out = _launch_density_mix("tpusph_density_mix_baseline", t, c, pt, rounds)
-    if out.is_cuda:
-        density_mix_baseline.launches += 1
-    return out
-
-
-density_mix_baseline.launches = 0
 
 
 # ------------------------------------------------------ loop-overhead probe
@@ -360,8 +340,18 @@ def loop_probe_walk(variant: str, desc: torch.Tensor, t: torch.Tensor, cand: tor
     return out
 
 
-def _launch_loop_probe(entry: str, static_rounds, variant: str, desc: torch.Tensor,
-                       t: torch.Tensor, cand: torch.Tensor, pt: int, bl: int, *extra):
+def loop_probe(variant: str, desc: torch.Tensor, t: torch.Tensor,
+               cand: torch.Tensor, pt: int, bl: int) -> torch.Tensor:
+    """Variant V0–V5 of the loop probe (see `loop_probe_plain`): desc int16
+    (rounds + 8), t f32 (≥ pt, 4), cand f32 (8, CAP) with every
+    desc[b]·128 + bl ≤ CAP. Launches `tpusph_loop_probe` for CUDA tensors:
+    a warp for each 32-lane slice and group of LOOP_TARGETS targets
+    (LOOP_WARPS warps of one slice a block), LOOP_UNROLL rounds in flight a
+    thread with their
+    terms added in round order, the desc table read 8 entries a load, and
+    the slice's candidates staged in shared memory where
+    `loop_stage_blocks` says they fit, else read from device memory. V0 and
+    V1 need rounds in STATIC_ROUNDS there."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {tuple(VARIANTS)}, got {variant!r}")
     dev = t.device
@@ -377,59 +367,25 @@ def _launch_loop_probe(entry: str, static_rounds, variant: str, desc: torch.Tens
         raise ValueError("desc needs rounds + 8 entries")
     if on_cpu(dev):
         return loop_probe_plain(variant, desc, t, cand, pt, bl)
-    if not VARIANTS[variant][0] and rounds not in static_rounds:
+    if not VARIANTS[variant][0] and rounds not in STATIC_ROUNDS:
         raise ValueError(
             f"{variant} has a compile-time trip count: rounds must be one of "
-            f"{static_rounds}, got {rounds}"
+            f"{STATIC_ROUNDS}, got {rounds}"
         )
     from tpusph_torch.utils import cuda_build
 
+    stage_d = loop_stage_blocks(variant, cand, bl)
     out = torch.empty((pt, bl), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = getattr(cuda_build.library(), entry)(
+        err = cuda_build.library().tpusph_loop_probe(
             desc.data_ptr(), t.data_ptr(), cand.data_ptr(), cand.shape[1], pt, bl,
-            rounds, int(variant[1]), *extra, out.data_ptr(), stream_of(dev),
+            rounds, int(variant[1]), stage_d, out.data_ptr(), stream_of(dev),
         )
-    cuda_build.check(err, entry)
-    return out
-
-
-def loop_probe(variant: str, desc: torch.Tensor, t: torch.Tensor,
-               cand: torch.Tensor, pt: int, bl: int) -> torch.Tensor:
-    """Variant V0–V5 of the loop probe (see `loop_probe_plain`): desc int16
-    (rounds + 8), t f32 (≥ pt, 4), cand f32 (8, CAP) with every
-    desc[b]·128 + bl ≤ CAP. Launches `tpusph_loop_probe` for CUDA tensors:
-    a warp for each 32-lane slice and group of LOOP_TARGETS targets
-    (LOOP_WARPS warps of one slice a block), LOOP_UNROLL rounds in flight a
-    thread with their
-    terms added in round order, the desc table read 8 entries a load, and
-    the slice's candidates staged in shared memory where
-    `loop_stage_blocks` says they fit, else read from device memory. V0 and
-    V1 need rounds in STATIC_ROUNDS there."""
-    stage_d = loop_stage_blocks(variant, cand, bl) if variant in VARIANTS else 0
-    out = _launch_loop_probe("tpusph_loop_probe", STATIC_ROUNDS, variant, desc, t, cand,
-                             pt, bl, stage_d)
-    if out.is_cuda:
-        loop_probe.launches += 1
-        loop_probe.staged += stage_d > 0
+    cuda_build.check(err, "tpusph_loop_probe")
+    loop_probe.launches += 1
+    loop_probe.staged += stage_d > 0
     return out
 
 
 loop_probe.launches = 0
 loop_probe.staged = 0  # launches that staged their candidates in shared memory
-
-
-def loop_probe_baseline(variant: str, desc: torch.Tensor, t: torch.Tensor,
-                        cand: torch.Tensor, pt: int, bl: int) -> torch.Tensor:
-    """`loop_probe` on the first design's kernel (`csrc/sph_baseline.cu`:
-    one thread per pair-lane, the rounds one by one, the desc table read an
-    entry a round), which `chip_smoke.py` and the GPU tests time the probe
-    against. V0 and V1 need rounds in BASELINE_STATIC_ROUNDS."""
-    out = _launch_loop_probe("tpusph_loop_probe_baseline", BASELINE_STATIC_ROUNDS, variant,
-                             desc, t, cand, pt, bl)
-    if out.is_cuda:
-        loop_probe_baseline.launches += 1
-    return out
-
-
-loop_probe_baseline.launches = 0

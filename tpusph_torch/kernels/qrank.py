@@ -4,17 +4,15 @@ queries[i]}, which is starts[queries[i]].
 Counterpart of `tpusph/pallas/qrank.py` (`rank_queries_pallas`). The CUDA
 kernel is `tpusph_torch/csrc/qrank.cu`; `rank_queries_plain` is the same
 function in plain PyTorch. `rank_queries` takes the plain version for CPU
-tensors and launches the kernel for CUDA tensors. `rank_queries_baseline`
-launches the first design (`csrc/sph_baseline.cu`, one thread per query
-searching the whole array), which only `chip_smoke.py`, `chain_turns` and
-the GPU tests call, to time the kernel against. `block_spans` is the
+tensors and launches the kernel for CUDA tensors. `block_spans` is the
 kernel's narrowing in plain PyTorch: the span of keys each block of
 queries searches, and whether it fits the block's stage.
 
 The narrowing pays on sorted queries only. On unsorted queries a block's
 span is most of the array, nothing is staged, and the kernel is slower
-than the first design: 0.0807-0.0811 against 0.0593-0.0598 ms at 262,144
-keys and 1,000,002 queries (NVIDIA H100 80GB HBM3, 700 W). The step and
+than one thread a query searching the whole array, the first design:
+0.0807-0.0811 against 0.0593-0.0598 ms at 262,144 keys and 1,000,002
+queries (NVIDIA H100 80GB HBM3, 700 W). The step and
 the sharded step only ever pass sorted queries (`cell_list.cell_queries`,
 every cell in order), so nothing on their paths meets that case.
 """
@@ -65,52 +63,32 @@ def block_spans(
     return lo, hi, (hi - lo) <= stage
 
 
-def _launch(entry: str, key_sorted: torch.Tensor, queries: torch.Tensor, num_cells: int):
-    """Ranks from the C entry point `entry`; the plain version's for CPU
-    tensors."""
+def rank_queries(
+    key_sorted: torch.Tensor, queries: torch.Tensor, num_cells: int
+) -> tuple[torch.Tensor, int]:
+    """(ranks int32[Q], overflow). `key_sorted` is int32[n], sorted
+    ascending; `queries` int32[Q], any values in any order. The plain
+    version for CPU tensors; `tpusph_qrank` for CUDA tensors. The overflow
+    is always 0: unlike the TPU kernel's key window, a span that does not
+    fit the kernel's stage is searched in device memory."""
     dev = key_sorted.device
     check_tensor("key_sorted", key_sorted, torch.int32, dev)
     check_tensor("queries", queries, torch.int32, dev)
     if on_cpu(dev):
         with plain_version():
-            return rank_queries_plain(key_sorted, queries, num_cells)
+            return rank_queries_plain(key_sorted, queries, num_cells), 0
     from tpusph_torch.utils import cuda_build
 
     lib = cuda_build.library()
     ranks = torch.empty_like(queries)
     with torch.cuda.device(dev):
-        err = getattr(lib, entry)(
+        err = lib.tpusph_qrank(
             key_sorted.data_ptr(), key_sorted.shape[0], queries.data_ptr(),
             queries.shape[0], num_cells, ranks.data_ptr(), stream_of(dev),
         )
-    cuda_build.check(err, entry)
-    return ranks
-
-
-def rank_queries(
-    key_sorted: torch.Tensor, queries: torch.Tensor, num_cells: int
-) -> tuple[torch.Tensor, int]:
-    """(ranks int32[Q], overflow). `key_sorted` is int32[n], sorted
-    ascending; `queries` int32[Q], any values in any order. The overflow is
-    always 0: unlike the TPU kernel's key window, a span that does not fit
-    the kernel's stage is searched in device memory."""
-    ranks = _launch("tpusph_qrank", key_sorted, queries, num_cells)
-    if ranks.is_cuda:
-        rank_queries.launches += 1
+    cuda_build.check(err, "tpusph_qrank")
+    rank_queries.launches += 1
     return ranks, 0
 
 
 rank_queries.launches = 0
-
-
-def rank_queries_baseline(
-    key_sorted: torch.Tensor, queries: torch.Tensor, num_cells: int
-) -> tuple[torch.Tensor, int]:
-    """`rank_queries` on the first design's kernel, `tpusph_qrank_baseline`."""
-    ranks = _launch("tpusph_qrank_baseline", key_sorted, queries, num_cells)
-    if ranks.is_cuda:
-        rank_queries_baseline.launches += 1
-    return ranks, 0
-
-
-rank_queries_baseline.launches = 0

@@ -19,6 +19,13 @@ import torch
 from tpusph_torch.core.config import SimConfig, f32
 
 
+def _sqrt(r2: torch.Tensor) -> torch.Tensor:
+    """√r², correctly rounded to r2's dtype, as XLA's and CUDA's float sqrt
+    are; the CPU's float32 `torch.sqrt` may round otherwise (a double's
+    sqrt, rounded once more to float32, is the correctly rounded value)."""
+    return torch.sqrt(r2.double()).to(r2.dtype)
+
+
 def poly6(r2: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     """(315/64πh⁹)(h²−r²)³ for r² ≤ h², else 0, from the squared distance."""
     h2 = f32(cfg.h2)
@@ -32,7 +39,7 @@ def spiky_grad(disp: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     returns disp·(−(45/πh⁶)(h−r)²/r), zero where r² > h² or r < EPS_F."""
     r2 = torch.sum(disp * disp, dim=-1)
     h = f32(cfg.h)
-    r = torch.sqrt(r2)
+    r = _sqrt(r2)
     live = (r2 <= f32(cfg.h2)) & (r >= f32(cfg.eps))
     safe_r = torch.where(live, r, 1.0)
     hr = h - safe_r
@@ -82,6 +89,6 @@ def pair_force(
     f_pressure = ((-m) * (p_i + p_j) / (2.0 * rho_j))[..., None] * spiky_grad(
         disp, cfg
     )
-    r = torch.sqrt(torch.sum(disp * disp, dim=-1))
+    r = _sqrt(torch.sum(disp * disp, dim=-1))
     f_visc = (f32(cfg.viscosity) * m * viscosity_lap(r, cfg) / rho_j)[..., None] * dv
     return f_pressure + f_visc

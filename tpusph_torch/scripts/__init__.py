@@ -1,10 +1,8 @@
 """Entry points of the rate probes, the counterparts of
-`scripts/vpu_microbench.py` and `scripts/loop_probe.py`, and the chained
-loop on the density and force kernels and on their baseline, in turns:
+`scripts/vpu_microbench.py` and `scripts/loop_probe.py`:
 
     python -m tpusph_torch.scripts.vpu_microbench
     python -m tpusph_torch.scripts.loop_probe [pt] [bl]
-    python -m tpusph_torch.scripts.chain_turns [N]
 
 They time the card and need one; each probe rate is the slope over the
 round count of the min-over-reps time of one call, from CUDA events

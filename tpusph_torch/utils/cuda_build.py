@@ -46,20 +46,14 @@ SIGNATURES = {
     # r0, r1 (tpusph_force_pack's rows), key, starts, n, C, num_cells, h, h2,
     # eps, mass, vk, mu, f (3·n field-major), walk (int64[3] or null), stream
     "tpusph_force": [P] * 4 + [I, I, I] + [F] * 6 + [P, P, P],
-    # the first design (sph_baseline.cu): the density as above; the force
-    # x, y, z, vx, vy, vz, rho, p, key, starts, then as tpusph_force without walk
+    # the density's first design (sph_baseline.cu), arguments as above
     "tpusph_density_baseline": [P, P, P, P, P, I, I, I, F, F, P, P],
-    "tpusph_force_baseline": [P] * 10 + [I, I, I] + [F] * 6 + [P, P],
-    "tpusph_qrank_baseline": [P, I, P, I, I, P, P],
-    "tpusph_density_mix_baseline": [P, P, I, I, I, P, P],
     # x, n, streams, rounds, bf16, out, stream
     "tpusph_fma_probe": [P, I, I, I, I, P, P],
     # t, c, pt, rounds, bf16, out, stream
     "tpusph_density_mix": [P, P, I, I, I, P, P],
     # desc, t, cand, cap, pt, bl, rounds, variant, stage_d, out, stream
     "tpusph_loop_probe": [P, P, P, I, I, I, I, I, I, P, P],
-    # the first design: desc, t, cand, cap, pt, bl, rounds, variant, out, stream
-    "tpusph_loop_probe_baseline": [P, P, P, I, I, I, I, I, P, P],
     # the device branch (graph_cond.cu): stream, pred (int32[1]), child graph
     "tpusph_graph_if": [P, P, P],
 }
