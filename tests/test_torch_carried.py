@@ -199,3 +199,30 @@ def test_an_overflow_grows_and_copies_the_state_into_new_pairs():
         assert _equal(carried.state, cloned.state)
     assert carried.cfg.tile_cand_capacity == cloned.cfg.tile_cand_capacity > 8
     assert carried._timed.carry and len(carried._timed.pairs) == 2
+
+
+@pytest.mark.parametrize("backend", ["kernels", "cell_list"])
+def test_each_timed_step_fetches_its_positions_wherever_the_copy_starts(backend, tracing):
+    """After every timed step `get_position()` equals the positions of
+    `simulate()` run from the same state, bit for bit, through a second
+    `setup()`. On the kernels the copy starts before the update's fence
+    and `sim.copy_overlapped` counts each step; on `cell_list` from
+    tile_cand_capacity 8 a step overflows and is replayed at a grown
+    capacity, the copy started after the fence, and the counter stays 0."""
+    cfg = ranks.dense_cfg()
+    if backend == "cell_list":
+        cfg = default_config(cfg.num_particles, chunk_size=cfg.chunk_size, tile_cand_capacity=8)
+    start = init_state(cfg, random_init=True, seed=11, device="cpu")
+    timed, plain = _Carried(cfg, backend=backend, device="cpu"), Simulator(cfg, backend, device="cpu")
+    steps = 0
+    for _ in range(2):
+        for sim in (timed, plain):
+            sim.setup(start)
+        for _ in range(4):
+            timed.simulate_and_time(Times())
+            plain.simulate()
+            np.testing.assert_array_equal(timed.get_position(), plain.get_position())
+            steps += 1
+    assert spans.counts().get("sim.copy_overlapped", 0) == (steps if backend == "kernels" else 0)
+    if backend == "cell_list":
+        assert timed.cfg.tile_cand_capacity > 8

@@ -1,8 +1,10 @@
 """The spans of the port's host code (`tpusph_torch/bench/spans.py`), on
 the CPU at small N: nothing recorded and no record function made without a
 profile; under one, the timed step's and the chain's spans in the
-profiler's events and the recorder, nested, indexed by step, summing to
-`Times`' fields; self time; the cap on records; the node counter."""
+profiler's events and the recorder, nested (the copy's spans inside
+`sim.update` on the kernels, after it on the tile passes), indexed by
+step, summing to `Times`' fields; self time; the cap on records; the node
+counter."""
 
 import math
 import time
@@ -30,8 +32,8 @@ def fresh():
     spans.reset()
 
 
-def _sim():
-    sim = Simulator(default_config(N, chunk_size=N), device="cpu")
+def _sim(backend="kernels"):
+    sim = Simulator(default_config(N, chunk_size=N), backend=backend, device="cpu")
     sim.setup()
     return sim
 
@@ -43,7 +45,8 @@ def _chain(sim):
 def test_no_profile_no_span_no_record_function_no_clock(monkeypatch):
     """Without a profile the timed steps and a chain call record nothing,
     never make a record function, and read the clock only for `Times`:
-    four reads a step, none in the recorder."""
+    five reads a step on the kernels (the build's two ends, the copy's two,
+    the update's end), none in the recorder."""
     sim = _sim()
     chain, fs = _chain(sim)
 
@@ -70,7 +73,7 @@ def test_no_profile_no_span_no_record_function_no_clock(monkeypatch):
     for _ in range(STEPS):
         sim.simulate_and_time(times)
     chain(fs)
-    assert times.iters == STEPS and len(reads) == 4 * STEPS
+    assert times.iters == STEPS and len(reads) == 5 * STEPS
     assert spans.records() == [] and spans.totals() == {} and spans.counts() == {}
 
 
@@ -81,8 +84,9 @@ def _children(records):
     return out
 
 
-def test_spans_under_a_profile_nest_index_and_sum_to_times():
-    sim = _sim()
+@pytest.mark.parametrize("backend", ["kernels", "cell_list"])
+def test_spans_under_a_profile_nest_index_and_sum_to_times(backend):
+    sim = _sim(backend)
     chain, fs = _chain(sim)
     sim.simulate_and_time(Times())  # the first call of each loop, outside the profile
     chain(fs)
@@ -92,7 +96,9 @@ def test_spans_under_a_profile_nest_index_and_sum_to_times():
             sim.simulate_and_time(times)
         chain(fs)
 
-    # the profiler's events: each span, nested as in the port
+    # the profiler's events: each span, nested as in the port; the copy
+    # runs under the update on the kernels, after it on the tile passes
+    copy_parent = "sim.update" if backend == "kernels" else "sim.step"
     parent = {}
     for e in prof.events():
         if e.name.startswith(("sim.", "graph.")):
@@ -100,10 +106,12 @@ def test_spans_under_a_profile_nest_index_and_sum_to_times():
     assert parent == {
         "sim.step": {None},
         "sim.build": {"sim.step"}, "sim.update": {"sim.step"},
-        "sim.copy_wait": {"sim.step"}, "sim.copy_start": {"sim.step"},
+        "sim.copy_wait": {copy_parent}, "sim.copy_start": {copy_parent},
         "graph.call": {"sim.build", "sim.update", None},
         "graph.replay": {"graph.call"},
     }
+    overlapped = spans.counts().get("sim.copy_overlapped", 0)
+    assert overlapped == (STEPS if backend == "kernels" else 0)
 
     # the recorder: one index a step, one for the chain's call
     recs = spans.records()
@@ -135,9 +143,17 @@ def test_spans_under_a_profile_nest_index_and_sum_to_times():
     kids = _children(recs)
     for r in recs:
         if r.name == "sim.step":
-            build, update, wait, start = (next(c for c in kids[r.id] if c.name == n)
-                                          for n in SIM_SPANS[1:])
-            assert build.end == update.start and update.end == wait.start
+            build, update = (next(c for c in kids[r.id] if c.name == n)
+                             for n in ("sim.build", "sim.update"))
+            assert build.end == update.start
+            if backend == "kernels":
+                wait, start = (next(c for c in kids[update.id] if c.name == n)
+                               for n in SIM_SPANS[3:])
+                assert update.start <= wait.start and start.end <= update.end
+            else:
+                wait, start = (next(c for c in kids[r.id] if c.name == n)
+                               for n in SIM_SPANS[3:])
+                assert update.end == wait.start
             assert wait.end == start.start
 
     # self time: the duration less what the children cover

@@ -11,6 +11,12 @@ import dataclasses
 
 @dataclasses.dataclass
 class Times:
+    """Seconds of the timed steps that stood, and their count. On the
+    kernels backend `Simulator.simulate_and_time` waits for the previous
+    copy and starts the next inside the update's interval, so there
+    `sph_update` holds `memcpy`: the two fields overlap. On the tile passes
+    the three phases follow each other."""
+
     build_grid: float = 0.0
     sph_update: float = 0.0
     memcpy: float = 0.0

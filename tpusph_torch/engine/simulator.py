@@ -23,9 +23,11 @@ State stays on the device across steps. Each timed phase ends in a
 synchronize of the compute stream, so it measures device time as the
 reference's do; the copy of the positions to the host runs on a side
 stream into pinned memory and overlaps the next step (`AsyncPositionFetch`,
-`AsyncChunkFetch`). On a card the timed steps carry the state in the
-graphs' own two buffers (`graphs.CarriedLoop`): after a timed step
-`self.state` is one of them, valid until the next `simulate_and_time`.
+`AsyncChunkFetch`); on the kernels the timed step enqueues that copy
+while the card runs the update, before the update's fence. On a card the
+timed steps carry the state in the graphs' own two buffers
+(`graphs.CarriedLoop`): after a timed step `self.state` is one of them,
+valid until the next `simulate_and_time`.
 
 Capacity: the `cell_list` backend's tile passes have a fixed candidate
 capacity and count what overflows it. `simulate`, `simulate_and_time` and
@@ -328,11 +330,20 @@ class Simulator:
         """One timed timestep with the reference's three phases (cu:499-546):
         grid build, SPH update (one replay each on a card, `_timed_phases`),
         copy of the positions to the host. The copy is double-buffered as in
-        tpusph: the phase waits for the previous step's copy, which
+        tpusph: the step waits for the previous step's copy, which
         overlapped this step's build and update, and starts this step's
         copy. A step that overflowed is replayed, its seconds not counted,
         with doubled capacity and its phases captured again (the new graphs
         copy the state in); `iters` counts only steps that stood.
+
+        On the kernels the wait and the start run between the update's
+        replay and its fence, while the card runs the update; the side
+        stream still waits for the update, so the copy reads its finished
+        positions. There `times.sph_update` (launch to fence, as the
+        reference's fenced timer reads) holds `times.memcpy` (the host
+        seconds of the wait and the start): the two fields overlap. On the
+        tile passes the overflow is read after the fence and the copy
+        follows it, as three phases in turn.
 
         On a card the state lives in the phases' two buffers
         (`graphs.CarriedLoop`): a step from the state the previous timed
@@ -349,14 +360,17 @@ class Simulator:
         Spans (`bench/spans.py`), while a profile records: `sim.step` around
         the step, inside it `sim.build` and `sim.update` (each phase's call
         and its fence), `sim.copy_wait` (the wait for the previous copy) and
-        `sim.copy_start` (this step's); the four share their clock reads
-        with `times`, so they sum to its fields over steps that stood. A
-        step that overflowed leaves its `sim.build` and `sim.update` spans,
-        and its recapture `graph.warmup` and `graph.record`, though `times`
-        drops its seconds. On the kernels, while a profile records, the
-        step's copy also takes the force pass's walk counter, which the
-        counters `force.*` take when the copy is waited for
-        (`AsyncPositionFetch`)."""
+        `sim.copy_start` (this step's), both inside `sim.update` on the
+        kernels and after it on the tile passes; they share their clock
+        reads with `times`, so `sim.build` and `sim.update` sum to its
+        phase fields and the two copy spans to `memcpy`, over steps that
+        stood. The counter `sim.copy_overlapped` adds 1 for each step whose
+        copy started before the update's fence. A step that overflowed
+        leaves its `sim.build` and `sim.update` spans, and its recapture
+        `graph.warmup` and `graph.record`, though `times` drops its seconds.
+        On the kernels, while a profile records, the step's copy also takes
+        the force pass's walk counter, which the counters `force.*` take
+        when the copy is waited for (`AsyncPositionFetch`)."""
         assert self.state is not None, "call setup() first"
         if self.backend not in ("kernels", "cell_list"):
             raise ValueError("timed mode needs the 'kernels' or 'cell_list' backend")
@@ -370,7 +384,12 @@ class Simulator:
 
     def _timed_step(self, times: Times) -> bool:
         """The phases of `simulate_and_time`; False, with nothing added to
-        `times`, where the step overflowed."""
+        `times`, where the step overflowed. Where the update's overflow is a
+        host int (the kernels' 0), the step is known to stand before the
+        update's fence, and the copy's host work runs between the replay and
+        the fence, under the card's update (the counter
+        `sim.copy_overlapped`); a tensor (the tile passes') is read after
+        the fence, and the copy is started only for a step that stood."""
         self._fence_fetches()
         t0 = time.perf_counter()
         with span("sim.build", t0) as s:
@@ -379,30 +398,43 @@ class Simulator:
             t1 = s.end = time.perf_counter()
         with span("sim.update", t1) as s:
             *fields, oob, ovf, walk = self._timed.update()
+            new_state = FluidState(*fields)
+            overlapped = not torch.is_tensor(ovf) and ovf == 0
+            if overlapped:
+                tw = time.perf_counter()
+                t3 = self._fetch_step(new_state, walk, tw)
+                count("sim.copy_overlapped", 1)
             self._sync()
             t2 = s.end = time.perf_counter()
-        if int(ovf) > 0:
-            return False
-
-        new_state = FluidState(*fields)
-        with span("sim.copy_wait", t2) as s:
-            if self._pending_fetch is not None:
-                self._position_host = self._pending_fetch.wait()
-        with span("sim.copy_start", s.end) as s:
-            self._pending_fetch = AsyncPositionFetch(
-                new_state.position, self.cfg.num_particles,
-                walk if walk is not None and recording() else None,
-                force_blocks(new_state.num_slots))
-            t3 = s.end = time.perf_counter()
-        self._step_fetch = self._pending_fetch
+        if not overlapped:
+            if int(ovf) > 0:
+                return False
+            tw, t3 = t2, self._fetch_step(new_state, walk, t2)
         times.build_grid += t1 - t0
         times.sph_update += t2 - t1
-        times.memcpy += t3 - t2
+        times.memcpy += t3 - tw
 
         self.state = new_state
         self.last_aux = StepAux(oob_count=oob, window_overflow=ovf)
         times.iters += 1
         return True
+
+    def _fetch_step(self, state: FluidState, walk, start: float) -> float:
+        """Wait for the previous timed step's copy to the host
+        (`sim.copy_wait`, from the clock read `start`) and start this one's
+        of `state`'s positions, with the walk counter while a profile
+        records (`sim.copy_start`); the clock read that ends both, shared
+        with the span."""
+        with span("sim.copy_wait", start) as s:
+            if self._pending_fetch is not None:
+                self._position_host = self._pending_fetch.wait()
+        with span("sim.copy_start", s.end) as s:
+            self._pending_fetch = self._step_fetch = AsyncPositionFetch(
+                state.position, self.cfg.num_particles,
+                walk if walk is not None and recording() else None,
+                force_blocks(state.num_slots))
+            end = s.end = time.perf_counter()
+        return end
 
     def _fence_fetches(self) -> None:
         """Before a timed step writes the phases' state buffers: unless the
