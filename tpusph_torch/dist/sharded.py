@@ -86,6 +86,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpusph_torch.bench.spans import span
 from tpusph_torch.core.config import SimConfig
 from tpusph_torch.dist.comm import SlabComm, int32s
 from tpusph_torch.engine.graphs import SegmentedLoop, device_if
@@ -1088,14 +1089,16 @@ def distribute_state(state, cfg: SimConfig, dcfg: DistConfig, comm: SlabComm) ->
 def collect_state(dist: DistState, num_particles: int, comm: SlabComm) -> dict:
     """Gather every rank's block and order the particles by pid:
     {position, velocity}, f32[N, 3] numpy, NaN where a pid is missing.
-    Every rank calls it and every rank gets the whole state."""
-    blocks = comm.gather(list(dist))
-    pos, vel, valid, pid = (
-        torch.cat([b[i] for b in blocks]).cpu().numpy() for i in range(4)
-    )
-    out_p = np.full((num_particles, 3), np.nan, np.float32)
-    out_v = np.full((num_particles, 3), np.nan, np.float32)
-    live = valid & (pid >= 0)
-    out_p[pid[live]] = pos[live]
-    out_v[pid[live]] = vel[live]
+    Every rank calls it and every rank gets the whole state. The span
+    `dist.collect` covers it while a profile records."""
+    with span("dist.collect"):
+        blocks = comm.gather(list(dist))
+        pos, vel, valid, pid = (
+            torch.cat([b[i] for b in blocks]).cpu().numpy() for i in range(4)
+        )
+        out_p = np.full((num_particles, 3), np.nan, np.float32)
+        out_v = np.full((num_particles, 3), np.nan, np.float32)
+        live = valid & (pid >= 0)
+        out_p[pid[live]] = pos[live]
+        out_v[pid[live]] = vel[live]
     return {"position": out_p, "velocity": out_v}

@@ -10,6 +10,18 @@ from them are the same on every rank. `mesh_shape=None` shards 1-D
 z-slabs (`dist/sharded.py`) over a slice-major line of the group's ranks
 (`dist/multislice.py`); `mesh_shape=(mz, my, mx)` shards a brick grid
 (`dist/mesh3d.py`) whose product must be the group's size.
+
+Spans and counters (`bench/spans.py`), kept only while a profile records:
+`dist.run` around each chunk of `run`, inside it `dist.aux` (the chunk's
+one host read of the counters) and `dist.grow` (a capacity growth and the
+step made again); `dist.build` and `dist.update` around the two phases of
+`simulate_and_time`, each with its fence; `dist.collect` around
+`collect_state` (`dist/sharded.py`). After a chunk's counters are read,
+the counters `dist.steps` (its steps), `dist.rows_peak` and
+`dist.rows_capacity` (its peak occupancy of a rank and `dev_capacity`),
+and `dist.migration_sorts` and `dist.migration_skips` (the migration
+branches it took, `sharded.migration_counts`, read only while a profile
+records); `dist.regrows` counts each capacity growth.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from tpusph_torch.bench.spans import count, recording, span
 from tpusph_torch.bench.times import Times
 from tpusph_torch.core.config import SimConfig
 from tpusph_torch.core.init import init_state
@@ -249,20 +262,32 @@ class DistSimulator:
         that sizes a window, `tile_cand_capacity` (the tile passes of
         `cell_list`). tpusph also doubles its `pallas_*` capacities, which
         size its Pallas window prep; the port has none."""
-        d = self.dcfg
-        dbl = lambda v: tuple(x * 2 for x in v) if isinstance(v, tuple) else v * 2
-        if aux.halo_overflow > 0:
-            d = dataclasses.replace(d, halo_capacity=dbl(d.halo_capacity))
-        if aux.migration_overflow > 0:
-            d = dataclasses.replace(
-                d, migration_capacity=dbl(d.migration_capacity), dev_capacity=d.dev_capacity * 2
-            )
-        if aux.window_overflow > 0:
-            self.cfg = dataclasses.replace(
-                self.cfg, tile_cand_capacity=self.cfg.tile_cand_capacity * 2
-            )
-        self.dcfg = d
-        self._rebuild_step()
+        with span("dist.grow"):
+            d = self.dcfg
+            dbl = lambda v: tuple(x * 2 for x in v) if isinstance(v, tuple) else v * 2
+            if aux.halo_overflow > 0:
+                d = dataclasses.replace(d, halo_capacity=dbl(d.halo_capacity))
+            if aux.migration_overflow > 0:
+                d = dataclasses.replace(d, migration_capacity=dbl(d.migration_capacity),
+                                        dev_capacity=d.dev_capacity * 2)
+            if aux.window_overflow > 0:
+                self.cfg = dataclasses.replace(
+                    self.cfg, tile_cand_capacity=self.cfg.tile_cand_capacity * 2
+                )
+            self.dcfg = d
+            self._rebuild_step()
+            count("dist.regrows", 1)
+
+    def _count_chunk(self, steps: int, aux: DistAux, branches0) -> None:
+        """The counters of a chunk whose counters `aux` were just read; only
+        while a profile records. `branches0`: `migration_counts()` before
+        the chunk."""
+        count("dist.steps", steps)
+        count("dist.rows_peak", aux.max_dev_particles)
+        count("dist.rows_capacity", self.dcfg.dev_capacity)
+        sorts, skips = sharded.migration_counts()
+        count("dist.migration_sorts", sorts - branches0[0])
+        count("dist.migration_skips", skips - branches0[1])
 
     def run(self, steps: int, chunk: int | None = None,
             rebalance_above: float | None = None) -> None:
@@ -280,25 +305,31 @@ class DistSimulator:
         done = 0
         while done < steps:
             k = min(chunk, steps - done)
-            for _ in range(GROWTH_RETRIES):
-                if k not in self._runners:
-                    self._runners[k] = make_run(self.cfg, self.dcfg, self.comm, k, self.backend)
-                new_state, aux = self._runners[k](self.state)
-                aux = _host(aux)
-                if not self._overflowed(aux):
-                    break
-                self._grow(aux)
-            else:
-                raise RuntimeError("dist capacity growth failed to converge")
-            self._check_misrouted(aux)
-            if aux.num_particles != self.cfg.num_particles:
-                raise RuntimeError(
-                    f"particle conservation broken: {aux.num_particles} != "
-                    f"{self.cfg.num_particles}"
-                )
-            self.state = new_state
-            self.last_aux = aux
-            done += k
+            with span("dist.run"):
+                branches0 = sharded.migration_counts() if recording() else None
+                for _ in range(GROWTH_RETRIES):
+                    if k not in self._runners:
+                        self._runners[k] = make_run(self.cfg, self.dcfg, self.comm, k,
+                                                    self.backend)
+                    new_state, aux = self._runners[k](self.state)
+                    with span("dist.aux"):
+                        aux = _host(aux)
+                    if not self._overflowed(aux):
+                        break
+                    self._grow(aux)
+                else:
+                    raise RuntimeError("dist capacity growth failed to converge")
+                self._check_misrouted(aux)
+                if aux.num_particles != self.cfg.num_particles:
+                    raise RuntimeError(
+                        f"particle conservation broken: {aux.num_particles} != "
+                        f"{self.cfg.num_particles}"
+                    )
+                self.state = new_state
+                self.last_aux = aux
+                done += k
+                if branches0 is not None:
+                    self._count_chunk(k, aux, branches0)
             if rebalance_above is not None and done < steps:
                 lam = aux.max_dev_particles * self._n_dev / self.cfg.num_particles
                 if lam >= rebalance_above:
@@ -320,15 +351,17 @@ class DistSimulator:
         build, update = self._timed
 
         t0 = time.perf_counter()
-        inter = build(self.state)
-        self._sync()
-        t1 = time.perf_counter()
+        with span("dist.build", t0) as s:
+            inter = build(self.state)
+            self._sync()
+            t1 = s.end = time.perf_counter()
         times.build_grid += t1 - t0
 
-        new_state, aux = update(*inter)
-        self._sync()
-        aux = _host(aux)
-        t2 = time.perf_counter()
+        with span("dist.update", t1) as s:
+            new_state, aux = update(*inter)
+            self._sync()
+            aux = _host(aux)
+            t2 = s.end = time.perf_counter()
         times.sph_update += t2 - t1
 
         if self._overflowed(aux):
