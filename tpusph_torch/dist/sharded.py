@@ -1090,15 +1090,25 @@ def collect_state(dist: DistState, num_particles: int, comm: SlabComm) -> dict:
     """Gather every rank's block and order the particles by pid:
     {position, velocity}, f32[N, 3] numpy, NaN where a pid is missing.
     Every rank calls it and every rank gets the whole state. The span
-    `dist.collect` covers it while a profile records."""
+    `dist.collect` covers it while a profile records.
+
+    The order by pid runs on the device that holds the blocks: position
+    and velocity are scattered with `index_copy_` into one NaN-filled
+    (2, N + 1, 3) tensor, a live row (valid, pid >= 0) to row pid and
+    every other row to the dump row N, so no boolean mask syncs the host.
+    That tensor then goes to the host in one copy, into a fresh pinned
+    tensor on a CUDA device, and the two arrays are its halves without
+    row N: fresh on every call, writable, C-contiguous. A pid on two live
+    rows (a conservation fault) keeps either row's values; a pid >= N is
+    an index error."""
     with span("dist.collect"):
         blocks = comm.gather(list(dist))
-        pos, vel, valid, pid = (
-            torch.cat([b[i] for b in blocks]).cpu().numpy() for i in range(4)
-        )
-        out_p = np.full((num_particles, 3), np.nan, np.float32)
-        out_v = np.full((num_particles, 3), np.nan, np.float32)
-        live = valid & (pid >= 0)
-        out_p[pid[live]] = pos[live]
-        out_v[pid[live]] = vel[live]
-    return {"position": out_p, "velocity": out_v}
+        pos, vel, valid, pid = (torch.cat([b[i] for b in blocks]) for i in range(4))
+        idx = torch.where(valid & (pid >= 0), pid.long(), num_particles)
+        out = torch.full((2, num_particles + 1, 3), float("nan"), dtype=pos.dtype,
+                         device=pos.device)
+        out[0].index_copy_(0, idx, pos)
+        out[1].index_copy_(0, idx, vel)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=out.is_cuda)
+        host = host.copy_(out).numpy()
+    return {"position": host[0, :num_particles], "velocity": host[1, :num_particles]}
